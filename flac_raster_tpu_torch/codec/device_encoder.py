@@ -1,0 +1,217 @@
+"""Device-resident FLAC encoder: plan, emit and pack on the card; only the
+compressed words come back.
+
+The port of ``flac_raster_tpu.codec.device_encoder.encode_flac_device``.
+Each chunk of full frames is copied to the device, planned and emitted
+there (``ops/device_emit.plan_and_emit``: the Rice cost kernel and two
+launches of the pack kernel), and the used prefix of its word buffer is
+copied back to pinned host memory.  The host byteswaps it to big-endian,
+patches every frame's CRC-8/CRC-16 with the native C pass, and writes
+STREAMINFO and the FRTP v2 layout block.
+
+The loop is deliberately simple and sequential -- copy in, compute, copy
+out, one chunk after another.  Overlapping those stages is later work.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import native
+from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_header
+from ..ops.device_codec import MAX_DEVICE_BPS
+from ..ops.device_emit import plan_and_emit, worst_case_words
+from .decoder import md5_of_samples
+from .encoder import _BPS_CODES, _SAMPLE_RATE_CODES, EncoderConfig, _blocksize_header
+
+__all__ = ["encode_flac_device", "resolve_device"]
+
+_UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; raises when CUDA is asked for and
+    absent (the plain PyTorch versions run only with ``device="cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the plain "
+                "PyTorch versions of the kernels"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _upload(rows: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Copy raw rows to the device.  uint16/uint32 travel as their signed
+    bit patterns and are viewed back as unsigned on the device, so no
+    PyTorch kernel has to support those dtypes."""
+    unsigned = {np.dtype(np.uint16): (np.int16, torch.uint16),
+                np.dtype(np.uint32): (np.int32, torch.uint32)}.get(rows.dtype)
+    if unsigned is None:
+        return torch.from_numpy(rows).to(dev)
+    signed, utype = unsigned
+    return torch.from_numpy(rows.view(signed)).to(dev).view(utype)
+
+
+def _patch_crcs(buf: np.ndarray, frame_bits: np.ndarray, hdr_bits: np.ndarray) -> None:
+    """Patch per-frame CRC-8 (header) and CRC-16 (frame) in place."""
+    frame_start = (np.cumsum(frame_bits) - frame_bits) >> 3
+    native.crc8_patch(buf, frame_start, hdr_bits >> 3)
+    native.crc16_patch(buf, frame_start, (frame_bits >> 3) - 2)
+
+
+def encode_flac_device(
+    samples: np.ndarray,
+    sample_rate: int,
+    bits_per_sample: int,
+    compression_level: int = 5,
+    blocksize: int = 4096,
+    comments: dict[str, str] | None = None,
+    vendor: str = "flac-raster-tpu",
+    compute_md5: bool = True,
+    padding: int = 0,
+    plan_chunk_frames: int = 2048,
+    zero_point: int = 0,
+    device="cuda",
+) -> bytes:
+    """Encode integer samples (n, channels) to FLAC on ``device``.
+
+    The bytes equal the JAX package's ``encode_flac_device`` output at
+    levels 0-2; from level 3 on, the float32 LPC stage may round
+    differently in rare blocks (the file stays valid and lossless).
+
+    Args:
+        samples: (n,) or (n, channels) integer array.  With ``zero_point``
+            the lossless shift normalization runs on the device, so raw
+            uint16/uint8/int16/int8 rasters are copied as they are.
+        device: ``"cuda"`` (default) or ``"cpu"`` for the plain versions.
+
+    Raises:
+        NotImplementedError: for what the port does not cover yet -- a
+            partial tail frame or fewer samples than one block, a blocksize
+            that is not a power of two, bps > 26, mid-side stereo and
+            levels 7-8.
+    """
+    dev = resolve_device(device)
+    samples = np.asarray(samples)
+    if samples.ndim == 1:
+        samples = samples[:, None]
+    n, channels = samples.shape
+    if not 1 <= channels <= 8:
+        raise ValueError("FLAC supports 1..8 channels")
+    if bits_per_sample not in _BPS_CODES:
+        raise ValueError(f"unsupported bits_per_sample {bits_per_sample}")
+    if not np.issubdtype(samples.dtype, np.integer):
+        raise ValueError(f"samples must be integers, not {samples.dtype}")
+    if (blocksize & (blocksize - 1)) != 0 or blocksize % 64 != 0:
+        raise NotImplementedError(
+            f"blocksize {blocksize} needs the host encoder, which is not ported "
+            "yet (ROADMAP Queue 1 item 12)"
+        )
+    n_full = n // blocksize
+    if n_full == 0 or n % blocksize:
+        raise NotImplementedError(
+            f"{n} samples leave a partial tail frame of blocksize {blocksize}; its "
+            "host encode is not ported yet (ROADMAP Queue 1 item 12)"
+        )
+    cfg = EncoderConfig.from_level(compression_level)
+    if channels == 2 and cfg.mid_side and bits_per_sample + 1 <= MAX_DEVICE_BPS:
+        raise NotImplementedError(
+            "mid-side stereo is not ported yet (ROADMAP Queue 1 item 5)"
+        )
+
+    lo = -(1 << (bits_per_sample - 1))
+    hi = (1 << (bits_per_sample - 1)) - 1
+    if zero_point:
+        # the subtraction happens on the device, so the dtype's whole range
+        # must fit
+        info = np.iinfo(samples.dtype)
+        if info.min - zero_point < lo or info.max - zero_point > hi:
+            raise ValueError("dtype range exceeds bits_per_sample under zero_point")
+    elif int(samples.min()) < lo or int(samples.max()) > hi:
+        raise ValueError("samples exceed bits_per_sample range")
+    samples = np.ascontiguousarray(samples)
+
+    bs_code, bs_tail_val, bs_tail_bits = _blocksize_header(blocksize)
+    layout = dict(
+        blocksize=blocksize,
+        bps=bits_per_sample,
+        sr_code=_SAMPLE_RATE_CODES.get(sample_rate, 0),
+        bps_code=_BPS_CODES[bits_per_sample],
+        bs_code=bs_code,
+        bs_tail_val=bs_tail_val,
+        bs_tail_bits=bs_tail_bits,
+        max_lpc_order=cfg.max_lpc_order,
+        max_partition_order=min(cfg.max_partition_order, 6),
+        use_lpc=cfg.use_lpc,
+        apodizations=cfg.apodizations,
+    )
+
+    # record_function ranges name the stages in a torch.profiler trace
+    # (host time per stage; chip_smoke.py prints them)
+    chunk = max(1, int(plan_chunk_frames))
+    pinned = None
+    chunks: list[bytes] = []
+    sizes: list[np.ndarray] = []
+    subs: list[np.ndarray] = []
+    for c0 in range(0, n_full, chunk):
+        c1 = min(c0 + chunk, n_full)
+        Fc = c1 - c0
+        with record_function("frtt.upload"):
+            xc = _upload(samples[c0 * blocksize : c1 * blocksize], dev)
+            xc = xc.reshape(Fc, blocksize, channels).permute(0, 2, 1)
+        n_words = worst_case_words(Fc, channels, blocksize, bits_per_sample)
+        with record_function("frtt.plan_and_emit"):
+            out = plan_and_emit(xc, c0, n_words=n_words, zero_point=zero_point, **layout)
+
+        with record_function("frtt.readback"):  # waits for the chunk's compute
+            frame_bits = out["frame_bits"].cpu().numpy()
+            total_bits = int(frame_bits.sum())
+            used = (total_bits + 31) // 32
+            if dev.type == "cuda":
+                if pinned is None or pinned.numel() < used:
+                    pinned = torch.empty(n_words, dtype=torch.int32, pin_memory=True)
+                host = pinned[:used]
+                host.copy_(out["words"][:used])
+                words = host.numpy()
+            else:
+                words = out["words"][:used].numpy()
+        with record_function("frtt.host_crc"):
+            buf = words.view(np.uint32).astype(">u4").view(np.uint8)[: (total_bits + 7) // 8]
+            buf = np.ascontiguousarray(buf)
+            fi = np.arange(c0, c1, dtype=np.int64)
+            n_bytes = np.sum(fi[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
+            _patch_crcs(buf, frame_bits.astype(np.int64), 32 + n_bytes * 8 + bs_tail_bits)
+        chunks.append(buf.tobytes())
+        sizes.append(frame_bits.astype(np.int64) >> 3)
+        subs.append(out["subframe_bits"][:, :-1].cpu().numpy().astype(np.int64))
+
+    all_sizes = np.concatenate(sizes)
+    md5 = (
+        md5_of_samples(samples.astype(np.int64) - zero_point, bits_per_sample)
+        if compute_md5
+        else b"\x00" * 16
+    )
+    streaminfo = StreamInfo(
+        min_blocksize=blocksize,
+        max_blocksize=blocksize,
+        min_framesize=int(all_sizes.min()),
+        max_framesize=int(all_sizes.max()),
+        sample_rate=sample_rate,
+        channels=channels,
+        bits_per_sample=bits_per_sample,
+        total_samples=n,
+        md5=md5,
+    )
+    header = build_flac_header(
+        streaminfo, comments, vendor, padding,
+        frame_sizes=all_sizes,
+        sub_bits=np.concatenate(subs) if channels > 1 else None,
+        layout_flags=LAYOUT_FLAG_TOK32,
+    )
+    return bytes(header) + b"".join(chunks)

@@ -1,0 +1,130 @@
+"""Raster <-> FLAC conversion of the port (the lossless shift lane).
+
+The port of ``flac_raster_tpu.converter.RasterFLACConverter.encode_array``
+(``converter.py:130``, its shift lane) and ``decode_bytes`` (``:813``).
+Integer rasters whose dtype maps to <= 26 bits per sample (uint8, int8,
+uint16, int16) encode on the device with the shift normalization fused into
+the planner's prologue; files carry the same GEOSPATIAL_* comments as the
+JAX package's, so each package decodes the other's files.  Every other
+mode raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .codec.decoder import decode_flac
+from .codec.device_encoder import encode_flac_device, resolve_device
+from .models.metadata import build_geospatial_comments, parse_geospatial_comments
+from .ops.normalization import (
+    MODE_SHIFT,
+    _SHIFT_SPECS,
+    NormalizationParams,
+    calculate_audio_params,
+    denormalize_lossless,
+)
+
+__all__ = ["RasterFLACConverter"]
+
+
+def _interleave(data: np.ndarray) -> np.ndarray:
+    """(bands, h, w) -> (h*w, bands) sample rows (the JAX package's layout)."""
+    bands = data.shape[0]
+    if bands == 1:
+        return data.reshape(-1, 1)
+    return np.ascontiguousarray(data.transpose(1, 2, 0).reshape(-1, bands))
+
+
+class RasterFLACConverter:
+    """Encodes integer rasters to FLAC on a device, and decodes them back.
+
+    Args:
+        lossless: must be True (the minmax mode is not ported).
+        compute_md5: write the PCM MD5 into STREAMINFO.
+        device: ``"cuda"`` (default) or ``"cpu"``; raises when CUDA is asked
+            for and absent.
+    """
+
+    def __init__(self, lossless: bool = True, compute_md5: bool = True, device="cuda"):
+        self.lossless = lossless
+        self.compute_md5 = compute_md5
+        self.device = resolve_device(device)
+
+    def encode_array(
+        self,
+        data: np.ndarray,
+        *,
+        crs: str | None = None,
+        transform=None,
+        bounds=None,
+        nodata: float | None = None,
+        compression_level: int = 5,
+        extra_comments: dict | None = None,
+    ) -> bytes:
+        """Encode a (bands, h, w) or (h, w) integer raster to FLAC bytes."""
+        data = np.asarray(data)
+        if data.ndim == 2:
+            data = data[None]
+        count, height, width = data.shape
+        dt = np.dtype(data.dtype)
+        if not (self.lossless and dt in _SHIFT_SPECS and _SHIFT_SPECS[dt][0] <= 26):
+            raise NotImplementedError(
+                f"{dt} rasters ({'lossless' if self.lossless else 'minmax'}) need a "
+                "normalization mode that is not ported yet (ROADMAP Queue 1 items 6 and 9)"
+            )
+        bps, zero = _SHIFT_SPECS[dt]
+        params = NormalizationParams(
+            data_min=float(data.min()), data_max=float(data.max()),
+            original_dtype=str(dt), bits_per_sample=bps, scale_factor=1,
+            mode=MODE_SHIFT, zero_point=zero,
+        )
+        comments = build_geospatial_comments(
+            crs=crs, width=width, height=height, count=count,
+            dtype=str(dt), transform=transform,
+            bounds=bounds if bounds is not None else [],
+            data_min=params.data_min, data_max=params.data_max,
+            nodata=nodata, norm_params=params,
+        )
+        if extra_comments:
+            comments.update(extra_comments)
+        sample_rate, _ = calculate_audio_params(data, dt)
+        return encode_flac_device(
+            _interleave(data), sample_rate, bps,
+            compression_level=compression_level, comments=comments,
+            compute_md5=self.compute_md5, zero_point=zero, device=self.device,
+        )
+
+    def decode_bytes(
+        self,
+        blob: bytes,
+        override_dims: tuple[int, int] | None = None,
+        verify_crc: bool = True,
+    ) -> tuple[np.ndarray, dict]:
+        """Decode FLAC bytes to ((bands, h, w) array, metadata dict).
+
+        Covers files in the lossless shift mode (written by either package).
+        """
+        decoded = decode_flac(blob, verify_crc=verify_crc)
+        meta = parse_geospatial_comments(decoded.comments)
+        if not meta:
+            raise ValueError("no geospatial metadata found in the FLAC stream")
+        params = meta.get("normalization")
+        if params is None or params.mode != MODE_SHIFT:
+            raise NotImplementedError(
+                "only files in the lossless shift mode decode in the port so far "
+                "(ROADMAP Queue 1 item 6)"
+            )
+        width, height, count = meta["width"], meta["height"], meta["count"]
+        if override_dims is not None:
+            width, height = override_dims
+            meta = dict(meta, width=width, height=height)
+        flat = denormalize_lossless(decoded.samples, params)
+        if flat.shape[0] != width * height:
+            raise ValueError(
+                f"decoded sample count {flat.shape[0]} != width*height {width * height}"
+            )
+        if count > 1 or flat.shape[1] > 1:
+            data = flat.reshape(height, width, -1).transpose(2, 0, 1)
+        else:
+            data = flat.reshape(height, width)[None]
+        return np.ascontiguousarray(data), meta

@@ -1,0 +1,75 @@
+"""Rice cost table: wrapper of the CUDA kernel ``csrc/rice_cost.cu``.
+
+Replaces the TPU kernels ``rice_cost_sums_hp`` / ``rice_cost_sums`` of
+``flac_raster_tpu/ops/pallas_kernels.py``.  Contract: for a (B, N) batch of
+zigzag residuals (uint32 bit patterns carried in int32, warmup positions
+zeroed) split into ``parts`` finest partitions,
+
+    sums[b, k, p] = sum over partition p of min(z >> k, 2^17),  k = 0..20
+    zmax[b, p]    = max over partition p of z (uint32 bits in int32)
+
+exactly, at every k.  That is the clamped table of the JAX planner's
+plain branch (``device_codec.py:224-229``); the TPU kernel's diagonal form
+agrees with it only after the planner's validity mask.
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+:func:`rice_cost_sums_reference`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+__all__ = ["rice_cost_sums", "rice_cost_sums_reference", "KMAX", "QCLAMP", "LAUNCHES"]
+
+KMAX = 20
+QCLAMP = 1 << 17
+# partition sums stay below 2^31 while base * QCLAMP does
+_MAX_BASE = (1 << 31) // QCLAMP - 1
+
+LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
+
+
+def _check(z: torch.Tensor, parts: int) -> int:
+    if z.dtype != torch.int32 or z.dim() != 2 or not z.is_contiguous():
+        raise ValueError("z must be a contiguous (B, N) int32 tensor")
+    B, N = z.shape
+    if parts <= 0 or N % parts:
+        raise ValueError(f"N={N} is not divisible by parts={parts}")
+    if N // parts > _MAX_BASE:
+        raise ValueError(f"partition of {N // parts} samples could overflow int32 sums")
+    return N // parts
+
+
+def rice_cost_sums_reference(z: torch.Tensor, parts: int):
+    """Plain PyTorch version (int64 arithmetic); same outputs as the kernel."""
+    base = _check(z, parts)
+    B = z.shape[0]
+    zr = (z.long() & 0xFFFFFFFF).reshape(B, parts, base)
+    zmax = zr.amax(dim=-1)
+    sums = torch.stack(
+        [(zr >> k).clamp_(max=QCLAMP).sum(dim=-1) for k in range(KMAX + 1)], dim=1
+    )
+    return sums.to(torch.int32), zmax.to(torch.int32)
+
+
+def rice_cost_sums(z: torch.Tensor, parts: int):
+    """(sums (B, 21, parts) int32, zmax (B, parts) int32 uint32-bits)."""
+    if z.device.type == "cpu":
+        return rice_cost_sums_reference(z, parts)
+    if z.device.type != "cuda":
+        raise ValueError(f"unsupported device {z.device}")
+    _check(z, parts)
+    B, N = z.shape
+    sums = torch.empty((B, KMAX + 1, parts), dtype=torch.int32, device=z.device)
+    zmax = torch.empty((B, parts), dtype=torch.int32, device=z.device)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    err = _build.kernels().frtt_rice_cost_sums(
+        z.data_ptr(), sums.data_ptr(), zmax.data_ptr(), B, N, parts, stream
+    )
+    _build.check(err, "rice_cost_sums")
+    global LAUNCHES
+    LAUNCHES += 1
+    return sums, zmax

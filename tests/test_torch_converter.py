@@ -1,0 +1,93 @@
+"""The slice as a whole: the port's RasterFLACConverter against the JAX one.
+
+A small integer raster goes through the port's ``encode_array`` /
+``decode_bytes`` (plain PyTorch versions on the CPU); the JAX converter
+decodes the port's file, and the port decodes the JAX converter's file.
+Rasters and geospatial metadata must be equal.
+"""
+
+import numpy as np
+import pytest
+
+from flac_raster_tpu.converter import RasterFLACConverter as JaxConverter
+from flac_raster_tpu_torch import RasterFLACConverter
+from flac_raster_tpu_torch.models.flac_format import (
+    BLOCK_VORBIS_COMMENT,
+    parse_flac_metadata,
+    parse_vorbis_comments,
+)
+
+GEO = dict(crs="EPSG:32633", transform=(30.0, 0.0, 500000.0, 0.0, -30.0, 4100000.0),
+           bounds={"left": 500000.0, "bottom": 4098080.0, "right": 515360.0,
+                   "top": 4100000.0},
+           nodata=0.0)
+
+
+def _raster(dtype, bands=1, h=64, w=512, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    info = np.iinfo(dtype)
+    out = []
+    for b in range(bands):
+        f = (0.3 + 0.1 * b) * np.sin(xx / 41.0) * np.cos(yy / 13.0) + rng.normal(0, 0.01, (h, w))
+        mid, half = (info.max + info.min) / 2, (info.max - info.min) / 2
+        out.append(np.clip(mid + half * f, info.min, info.max).astype(dtype))
+    return np.stack(out)
+
+
+def _comments(blob):
+    for b in parse_flac_metadata(blob)[1]:
+        if b.block_type == BLOCK_VORBIS_COMMENT:
+            return parse_vorbis_comments(b.data)[1]
+    return {}
+
+
+def _same_meta(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if k == "normalization":
+            assert a[k].to_dict() == b[k].to_dict()
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize(
+    "dtype,bands,level",
+    [(np.uint16, 1, 5), (np.int16, 1, 0), (np.uint8, 3, 5), (np.int8, 1, 2)],
+)
+def test_round_trip_through_both_packages(dtype, bands, level):
+    data = _raster(dtype, bands)
+    port = RasterFLACConverter(device="cpu")
+    blob = port.encode_array(data, compression_level=level, **GEO)
+
+    got, meta = port.decode_bytes(blob)
+    assert got.dtype == data.dtype and np.array_equal(got, data)
+    jgot, jmeta = JaxConverter().decode_bytes(blob)
+    assert jgot.dtype == data.dtype and np.array_equal(jgot, data)
+    _same_meta(meta, jmeta)
+
+    # the JAX converter's own file: same comments, and the port decodes it
+    jblob = JaxConverter().encode_array(data, compression_level=level, **GEO)
+    assert _comments(jblob) == _comments(blob)
+    pgot, pmeta = port.decode_bytes(jblob)
+    assert np.array_equal(pgot, data)
+    _same_meta(pmeta, jmeta)
+
+
+def test_md5_written_and_checked():
+    from flac_raster_tpu_torch import decode_flac
+
+    data = _raster(np.uint16)
+    blob = RasterFLACConverter(device="cpu").encode_array(data, compression_level=5)
+    dec = decode_flac(blob, verify_crc=True, verify_md5=True)
+    assert dec.streaminfo.md5 != b"\x00" * 16
+    assert np.array_equal(dec.samples[:, 0], data.reshape(-1).astype(np.int64) - 32768)
+
+
+@pytest.mark.parametrize(
+    "dtype,lossless", [(np.float32, True), (np.int32, True), (np.uint16, False)]
+)
+def test_unported_modes_raise(dtype, lossless):
+    data = np.zeros((1, 8, 512), dtype)
+    with pytest.raises(NotImplementedError):
+        RasterFLACConverter(lossless=lossless, device="cpu").encode_array(data)
