@@ -19,7 +19,15 @@ is not 0:
      once timed; both kernels must have launched during the timed run;
   4. round trip: ``decode_bytes`` (CRC-16 checked) returns the scene;
   5. size: the compressed frames are at most 0.25% larger than the JAX
-     package's for the same scene.
+     package's for the same scene;
+  6. each decode kernel against its plain PyTorch version on the card, on
+     one real 4096-frame chunk of the phase-3 file (plus a lane of random
+     words for the Rice scan): outputs must be identical; both are timed
+     with CUDA events;
+  7. the decode path: ``RasterFLACConverter(device="cuda")
+     .decode_bytes_device`` of the phase-3 file, once to warm up and once
+     timed; it must stay on the device route, launch all three decode
+     kernels, and return the scene exactly, on the card.
 
 The last three lines of standard output are a JSON object with each
 kernel's numbers, the ``nvidia-smi`` name and power limit, and
@@ -86,6 +94,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_once(fn):
+    """(fn(), its device time in ms) for one run with no warm-up."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def phase_kernels(scene: np.ndarray, dev) -> list[dict]:
@@ -193,6 +214,158 @@ def profile_encode(conv, scene) -> None:
     log(table)
 
 
+def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
+    """Decode kernel vs plain version on the first chunk of F frames."""
+    import torch
+
+    from flac_raster_tpu_torch.codec.device_decoder import prepare_frames
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
+    from flac_raster_tpu_torch.ops import gather, restore, rice_scan
+    from flac_raster_tpu_torch.ops.bits import M32
+    from flac_raster_tpu_torch.ops.device_decode import parse_header
+
+    si, blocks, frame_start = parse_flac_metadata(blob)
+    N = si.max_blocksize
+    prep = prepare_frames(blob, frame_start, parse_layout_block(blocks), si, 0, F, dev)
+    body, word0, W = prep["body"], prep["word0"], prep["W"]
+    # the last window runs past the body: the kernel must zero-fill it
+    word0_z = torch.cat([word0, torch.tensor([body.numel() - W // 2], device=dev)])
+    log(f"gather_windows input: body {body.numel()} words, {word0_z.numel()} windows of {W} words")
+    win_k = gather.gather_windows(body, word0_z, W)
+    win_p = gather.gather_windows_reference(body, word0_z, W)
+    torch.cuda.synchronize()
+    if not torch.equal(win_k, win_p):
+        raise AssertionError("gather_windows differs from its plain version")
+    if win_k[-1, W - W // 2 :].any():
+        raise AssertionError("gather_windows read past the body")
+    a_ms = cuda_ms(lambda: gather.gather_windows(body, word0, W), iters=20)
+    a_plain_ms = cuda_ms(lambda: gather.gather_windows_reference(body, word0, W), iters=3, warmup=1)
+    log(f"gather_windows: identical to plain, zeros past the body (tolerance 0); "
+        f"kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms")
+
+    windows = win_k[:F]
+    eb = torch.full((F,), si.bits_per_sample, dtype=torch.int64, device=dev)
+    h = parse_header(windows.long() & M32, prep["sf"][:, 0], eb,
+                     torch.zeros(F, dtype=torch.bool, device=dev), N=N)
+    # one hostile lane: random words, a Rice header with 5-bit parameters
+    rng = np.random.default_rng(7)
+    hostile = rng.integers(0, 1 << 32, (1, W), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    words_b = torch.cat([windows, torch.from_numpy(hostile).to(dev)])
+
+    def lane(key, value):
+        return torch.cat([h[key], torch.tensor([value], dtype=h[key].dtype, device=dev)])
+
+    scan_args = [lane("rstart", 3), lane("err", False), lane("is_rice", True), lane("order", 2),
+                 lane("n_codes", N - 2), lane("pbits", 5), lane("psm", N // 4 - 1)]
+    log(f"rice_scan_full input: words {tuple(words_b.shape)} int32 ({F} lanes + 1 hostile), N {N}")
+    zs_k, rend_k, err_k = rice_scan.rice_scan_full(words_b, *scan_args, N)
+    (zs_p, rend_p, err_p), b_plain_ms = cuda_once(
+        lambda: rice_scan.rice_scan_full_reference(words_b, *scan_args, N))
+    scan_err = int(((zs_k.long() & M32) - (zs_p.long() & M32)).abs().max())
+    if not (torch.equal(zs_k, zs_p) and torch.equal(rend_k, rend_p) and torch.equal(err_k, err_p)):
+        raise AssertionError("rice_scan_full differs from its plain version")
+    if err_k[:F].any():
+        raise AssertionError("rice_scan_full flagged a lane of a valid file")
+    b_ms = cuda_ms(lambda: rice_scan.rice_scan_full(words_b, *scan_args, N), iters=10, warmup=1)
+    log(f"rice_scan_full: zs, rend and err identical to plain (tolerance 0), hostile lane "
+        f"err={bool(err_k[-1])}; kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms (one call)")
+
+    # the hostile lane restores with 16-bit coefficients: int32 wraparound
+    coefs = torch.cat([h["coefs"], torch.from_numpy(
+        rng.integers(-32768, 32768, (1, 12)).astype(np.int32)).to(dev)])
+    warm = torch.cat([h["warm"], torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, (1, 12)).astype(np.int32)).to(dev)])
+    rest_args = [zs_k, lane("order", 12), coefs, lane("shift", 3), warm, N]
+    sig_k = restore.restore(*rest_args)
+    sig_p, c_plain_ms = cuda_once(lambda: restore.restore_reference(*rest_args))
+    rest_err = int((sig_k.long() - sig_p.long()).abs().max())
+    if not torch.equal(sig_k, sig_p):
+        raise AssertionError("restore differs from its plain version")
+    c_ms = cuda_ms(lambda: restore.restore(*rest_args), iters=10, warmup=1)
+    log(f"restore: identical to plain (tolerance 0: int32 wraparound); kernel {c_ms:.4f} ms, "
+        f"plain {c_plain_ms:.4f} ms (one call)")
+    return [
+        {"name": "gather_windows", "route": "cuda",
+         "source": "flac_raster_tpu_torch/csrc/gather.cu",
+         "replaces": "flac_raster_tpu/ops/pallas_gather.py:60",
+         "max_abs_err": int((win_k.long() - win_p.long()).abs().max()),
+         "ms": a_ms, "plain_ms": a_plain_ms},
+        {"name": "rice_scan_full", "route": "cuda",
+         "source": "flac_raster_tpu_torch/csrc/rice_scan.cu",
+         "replaces": "flac_raster_tpu/ops/pallas_rice_scan2.py:242",
+         "max_abs_err": scan_err, "ms": b_ms, "plain_ms": b_plain_ms},
+        {"name": "restore", "route": "cuda",
+         "source": "flac_raster_tpu_torch/csrc/restore.cu",
+         "replaces": "flac_raster_tpu/ops/device_decode.py:562",
+         "max_abs_err": rest_err, "ms": c_ms, "plain_ms": c_plain_ms},
+    ]
+
+
+def phase_decode(blob: bytes, scene: np.ndarray, dev, card: str) -> dict:
+    """decode_bytes_device of the scene's file: warm-up, timed run with
+    launch counts, exactness on the card, then a profiled run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flac_raster_tpu_torch import RasterFLACConverter, decode_flac_device
+    from flac_raster_tpu_torch.codec import device_decoder
+    from flac_raster_tpu_torch.ops import gather, restore, rice_scan
+
+    conv = RasterFLACConverter(device="cuda")
+    t0 = time.perf_counter()
+    conv.decode_bytes_device(blob)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    host_routes = device_decoder.HOST_ROUTES
+    gather.LAUNCHES = rice_scan.LAUNCHES = restore.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data, _ = conv.decode_bytes_device(blob)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"gather_windows": gather.LAUNCHES, "rice_scan_full": rice_scan.LAUNCHES,
+                "restore": restore.LAUNCHES}
+    if device_decoder.HOST_ROUTES != host_routes:
+        raise AssertionError("the decode took the host route")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by the decode path")
+    if data.device.type != "cuda" or data.dtype != torch.uint16 or tuple(data.shape) != (1,) + scene.shape:
+        raise AssertionError(f"decoded raster {data.device} {data.dtype} {tuple(data.shape)}")
+    if not torch.equal(data[0].view(torch.int16), torch.from_numpy(scene.view(np.int16)).to(dev)):
+        raise AssertionError("decoded raster on the card differs from the scene")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"decode: {dt:.3f} s timed ({warm:.3f} s warm-up), {scene.nbytes / dt / 1e6:.2f} MB/s raw, "
+        f"exact on the card, launches {launches}, peak device memory {peak:.0f} MiB | {card}")
+    del data
+
+    dec = decode_flac_device(blob, device=dev)
+    if dec.route != "device":
+        raise AssertionError(f"decode_flac_device took route {dec.route!r}")
+    del dec
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        conv.decode_bytes_device(blob)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    dev_us = sum(
+        e.self_device_time_total for e in averages
+        if e.device_type.name == "CUDA" and not e.key.startswith("frtt.")
+    )
+    log(f"decode profile: wall {wall * 1e3:.1f} ms under the profiler, device kernel time "
+        f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}% busy)")
+    # each synchronising call holds the host until the card has caught up
+    api = {e.key: e.count for e in averages
+           if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")}
+    log(f"  CUDA runtime calls in the decode: {api}")
+    for e in sorted(averages, key=lambda e: e.key):
+        if e.key.startswith("frtt.decode") and e.device_type.name == "CPU":
+            log(f"  stage {e.key}: host {e.cpu_time_total / 1e3:.1f} ms over {e.count} calls")
+    log(averages.table(sort_by="cuda_time_total", row_limit=20, max_name_column_width=50))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -245,10 +418,7 @@ def main() -> int:
     log(f"encode: {dt:.3f} s timed ({warm:.3f} s warm-up), {mbps:.2f} MB/s, "
         f"ratio {scene.nbytes / len(blob):.4f}, {len(blob)} bytes, launches {launches} "
         f"| {card}")
-    try:
-        profile_encode(conv, scene)
-    except Exception as exc:  # informational phase: report and go on
-        log(f"profile: unavailable ({type(exc).__name__}: {exc})")
+    profile_encode(conv, scene)
 
     log("phase 4: round trip")
     data, meta = conv.decode_bytes(blob, verify_crc=True)
@@ -263,6 +433,15 @@ def main() -> int:
         f"ratio {frame_bytes / JAX_LEVEL5_FRAME_BYTES:.6f} (limit {SIZE_ENVELOPE})")
     if frame_bytes > limit:
         raise AssertionError(f"port frames {frame_bytes} B exceed {limit:.0f} B")
+
+    log("phase 6: decode kernels vs plain versions at main-path shapes")
+    kernels += phase_decode_kernels(blob, dev)
+    torch.cuda.empty_cache()
+
+    log("phase 7: decode path, 8192x8192 uint16 level-5 file")
+    launches = phase_decode(blob, scene, dev, card)
+    for k in kernels[2:]:
+        k["launches"] = launches[k["name"]]
 
     print(json.dumps({"kernels": kernels}))
     print(smi())

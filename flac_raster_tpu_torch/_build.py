@@ -1,10 +1,12 @@
 """Build and load the port's Hopper kernels (``csrc/*.cu``).
 
-nvcc compiles every CUDA source into one shared library with a plain C
-interface for ``sm_90a``, which is loaded with ctypes::
+nvcc compiles each CUDA source to an object for ``sm_90a``, all sources at
+once in parallel processes, and links the objects into one shared library
+with a plain C interface, which is loaded with ctypes::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v csrc/*.cu -o _build/kernels-<hash>/libfrtt_kernels.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   # one per source
+    nvcc -shared *.o -o _build/kernels-<hash>/libfrtt_kernels.so
 
 The build runs at first use (so ``python3 chip_smoke.py`` alone builds
 everything), is keyed by a content hash of the sources and the command, and
@@ -29,7 +31,7 @@ __all__ = ["build", "kernels", "check", "nvcc_log"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _lib = None
@@ -68,16 +70,39 @@ def build() -> Path:
     with open(out / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib_path.exists():
-            tmp = out / f"libfrtt_kernels.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *_FLAGS, *map(str, _sources()), "-o", str(tmp)]
-            res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-            (out / "nvcc.log").write_text(
-                " ".join(cmd) + "\n" + res.stdout + res.stderr
-            )
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{res.stderr}")
-            os.replace(tmp, lib_path)
+            _compile_and_link(out, lib_path)
     return lib_path
+
+
+def _compile_and_link(out: Path, lib_path: Path) -> None:
+    nvcc = _nvcc()
+    cmds = [[nvcc, *_FLAGS, "-c", str(src), "-o", str(out / f"{src.stem}.o")]
+            for src in _sources()]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            text, _ = proc.communicate(timeout=900)
+            logs.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(text)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = out / f"libfrtt_kernels.{os.getpid()}.tmp"
+    if not failed:
+        link = [nvcc, "-shared", *(c[-1] for c in cmds), "-o", str(tmp)]
+        res = subprocess.run(link, capture_output=True, text=True, timeout=300)
+        logs.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
+    (out / "nvcc.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(tmp, lib_path)
 
 
 def nvcc_log() -> str:
@@ -97,6 +122,13 @@ def kernels():
     lib.frtt_rice_cost_sums.restype = ctypes.c_int
     lib.frtt_pack_tokens.argtypes = [vp, vp, vp, i64, vp, i64, vp]
     lib.frtt_pack_tokens.restype = ctypes.c_int
+    lib.frtt_gather_windows.argtypes = [vp, i64, vp, i64, i64, vp, vp]
+    lib.frtt_gather_windows.restype = ctypes.c_int
+    lib.frtt_rice_scan_full.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, vp, vp, i32,
+                                        vp, vp, vp, vp]
+    lib.frtt_rice_scan_full.restype = ctypes.c_int
+    lib.frtt_restore.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, vp]
+    lib.frtt_restore.restype = ctypes.c_int
     lib.frtt_error_string.argtypes = [ctypes.c_int]
     lib.frtt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -14,6 +14,7 @@ import hashlib
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .. import native
 from ..models.flac_format import (
@@ -28,10 +29,14 @@ __all__ = ["decode_flac", "DecodedStream", "md5_of_samples"]
 
 @dataclass
 class DecodedStream:
-    samples: np.ndarray  # (total_samples, channels) int32
+    # (total_samples, channels) int32: a numpy array from the host decoder,
+    # a tensor on the device from codec/device_decoder
+    samples: "np.ndarray | torch.Tensor"
     streaminfo: StreamInfo
     comments: dict[str, list[str]]
     vendor: str = ""
+    # "host" (decode_flac), "device" or "host: <reason>" (decode_flac_device)
+    route: str = "host"
 
 
 def decode_flac(

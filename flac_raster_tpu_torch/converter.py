@@ -1,7 +1,8 @@
 """Raster <-> FLAC conversion of the port (the lossless shift lane).
 
 The port of ``flac_raster_tpu.converter.RasterFLACConverter.encode_array``
-(``converter.py:130``, its shift lane) and ``decode_bytes`` (``:813``).
+(``converter.py:130``, its shift lane), ``decode_bytes`` (``:813``) and
+``decode_bytes_device`` (``:717``, ``_denormalize_device_stream`` ``:770``).
 Integer rasters whose dtype maps to <= 26 bits per sample (uint8, int8,
 uint16, int16) encode on the device with the shift normalization fused into
 the planner's prologue; files carry the same GEOSPATIAL_* comments as the
@@ -14,8 +15,10 @@ from __future__ import annotations
 import numpy as np
 
 from .codec.decoder import decode_flac
+from .codec.device_decoder import decode_flac_device
 from .codec.device_encoder import encode_flac_device, resolve_device
 from .models.metadata import build_geospatial_comments, parse_geospatial_comments
+from .ops.device_normalize import denormalize_device
 from .ops.normalization import (
     MODE_SHIFT,
     _SHIFT_SPECS,
@@ -93,6 +96,42 @@ class RasterFLACConverter:
             compression_level=compression_level, comments=comments,
             compute_md5=self.compute_md5, zero_point=zero, device=self.device,
         )
+
+    def decode_bytes_device(self, blob: bytes, override_dims: tuple[int, int] | None = None):
+        """Decode FLAC bytes on the converter's device; the raster never
+        visits the host.
+
+        Returns ((bands, h, w) tensor of the raster's dtype on the device,
+        metadata dict).  The frames decode through
+        ``codec/device_decoder.decode_flac_device`` (CRC-16 checked) and the
+        inverse shift normalization runs on the device
+        (``ops/device_normalize``).  Covers 8- and 16-bit integer files in
+        the lossless shift mode, written by either package.
+        """
+        decoded = decode_flac_device(blob, device=self.device)
+        meta = parse_geospatial_comments(decoded.comments)
+        if not meta:
+            raise ValueError("no geospatial metadata found in the FLAC stream")
+        params = meta.get("normalization")
+        if params is None:
+            raise NotImplementedError(
+                "files without normalization parameters (written by the reference "
+                "converter) are not ported yet (ROADMAP Queue 1 item 6)"
+            )
+        width, height, count = meta["width"], meta["height"], meta["count"]
+        if override_dims is not None:
+            width, height = override_dims
+            meta = dict(meta, width=width, height=height)
+        flat = decoded.samples
+        if flat.shape[0] != width * height:
+            raise ValueError(
+                f"decoded sample count {flat.shape[0]} != width*height {width * height}"
+            )
+        # band-major layout first, on int32 (the narrow unsigned types
+        # support few operations), then the elementwise denormalization
+        data = flat.reshape(height, width, -1).permute(2, 0, 1).contiguous()
+        bps = decoded.streaminfo.bits_per_sample
+        return denormalize_device(data, params, bits_per_sample=bps), meta
 
     def decode_bytes(
         self,

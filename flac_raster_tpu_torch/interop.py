@@ -1,10 +1,10 @@
 """State carried between the JAX package and the port.
 
 A codec has no weights: the state one side can hand the other is the plan
-(the planner's decisions) and the LPC float stage's output.  These helpers
-turn the JAX package's outputs, taken as numpy arrays, into the port's CPU
-tensors and back, so that both sides can run the same integer pipeline on
-the same decisions.
+(the planner's decisions), the LPC float stage's output, and the decoder's
+batch of frame windows.  These helpers turn the JAX package's outputs and
+inputs, taken as numpy arrays, into the port's CPU tensors and back, so
+that both sides can run the same integer pipeline on the same data.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["plan_from_reference", "plan_to_numpy", "lpc_from_reference"]
+__all__ = ["plan_from_reference", "plan_to_numpy", "lpc_from_reference",
+           "decode_inputs_from_reference"]
 
 
 def _tensor(a, dtype) -> torch.Tensor:
@@ -39,4 +40,17 @@ def lpc_from_reference(order, qcoeffs, shift, lpc_safe, r_lpc) -> tuple:
         _tensor(shift, np.int32),
         _tensor(lpc_safe, np.bool_),
         _tensor(r_lpc, np.int32),
+    )
+
+
+def decode_inputs_from_reference(windows, bit_base, sf_start, frame_end) -> tuple:
+    """The JAX ``decode_frames_device`` inputs -> the port's: (windows (B, W)
+    int32 bit patterns of the uint32 words, bit_base (B,) int64, sf_start
+    (B, C) int64, frame_end (B,) int64)."""
+    w = np.ascontiguousarray(np.asarray(windows, dtype=np.uint32)).view(np.int32)
+    return (
+        torch.from_numpy(w.copy()),
+        _tensor(bit_base, np.int64),
+        _tensor(sf_start, np.int64),
+        _tensor(frame_end, np.int64),
     )

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from flac_raster_tpu_torch.ops import pack, rice_cost
+from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_scan
 
 pytestmark = pytest.mark.gpu
 
@@ -119,3 +119,105 @@ def test_encode_on_card_matches_cpu(cuda, level):
     for blob in (gpu, cpu):
         dec = decode_flac(blob, verify_crc=True, verify_md5=True)
         assert np.array_equal(dec.samples[:, 0], x.astype(np.int64) - 32768)
+
+
+def _u32(rng, shape):
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("W", [1028, 16])
+def test_gather_kernel_matches_plain_and_zero_fills(cuda, W):
+    """Aligned and unaligned sources; windows at and past the end of the
+    body (and before it) read zeros."""
+    rng = np.random.default_rng(W)
+    body = torch.from_numpy(_u32(rng, 50_003)).to(cuda)
+    word0 = np.sort(rng.integers(0, 49_000, 500))
+    word0 = np.concatenate([word0, [49_990, 50_003, 60_000, -3, 0, 1, 2, 3]])
+    word0 = torch.from_numpy(word0.astype(np.int64)).to(cuda)
+    before = gather.LAUNCHES
+    out = gather.gather_windows(body, word0, W)
+    assert gather.LAUNCHES == before + 1
+    ref = gather.gather_windows_reference(body, word0, W)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert not out[-7].any() and not out[-6].any()  # at / past the end
+    assert torch.equal(out[-8, :13], body[49_990:][:W]) and not out[-8, 13:].any()
+    # an unaligned view of the body
+    out2 = gather.gather_windows(body[1:], word0[:-8], W)
+    assert torch.equal(out2, gather.gather_windows_reference(body[1:], word0[:-8], W))
+    with pytest.raises(ValueError):
+        gather.gather_windows(body, word0, W + 2)
+
+
+def _scan_inputs(rng, B, W, n, cuda):
+    words = torch.from_numpy(_u32(rng, (B, W))).to(cuda)
+
+    def lanes(lo, hi, dt=torch.int32):
+        return torch.from_numpy(rng.integers(lo, hi, B)).to(dt).to(cuda)
+
+    return (words, lanes(0, 64 * W), lanes(0, 2, torch.bool), lanes(0, 2, torch.bool),
+            lanes(0, 13), lanes(n - 12, n + 1), lanes(4, 8),
+            torch.from_numpy((1 << rng.integers(0, 9, B)) - 1).to(torch.int32).to(cuda))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rice_scan_kernel_hostile_windows_match_plain(cuda, seed):
+    """Random words, random headers (cursors started past the window, escape
+    parameters, 6- and 7-bit parameters): no fault, and zs, rend and err
+    identical to the plain version."""
+    rng = np.random.default_rng(seed)
+    n = 256
+    args = _scan_inputs(rng, 300, 40, n, cuda)
+    before = rice_scan.LAUNCHES
+    zs, rend, err = rice_scan.rice_scan_full(*args, n)
+    assert rice_scan.LAUNCHES == before + 1
+    zs_p, rend_p, err_p = rice_scan.rice_scan_full_reference(*args, n)
+    torch.cuda.synchronize()
+    assert torch.equal(zs, zs_p) and torch.equal(rend, rend_p) and torch.equal(err, err_p)
+    past = args[3] & (args[1] > 32 * 40)
+    assert past.any() and err[past].all()  # a cursor that starts past the window errs
+
+
+def test_restore_kernel_wraparound_matches_plain(cuda):
+    rng = np.random.default_rng(3)
+    B, n = 200, 512
+    zs = torch.from_numpy(_u32(rng, (B, n))).to(cuda)
+    order = torch.from_numpy(rng.integers(0, 13, B).astype(np.int32)).to(cuda)
+    coefs = torch.from_numpy(_u32(rng, (B, 12))).to(cuda)   # full int32 range
+    shift = torch.from_numpy(rng.integers(-2, 34, B).astype(np.int32)).to(cuda)
+    warm = torch.from_numpy(_u32(rng, (B, 12))).to(cuda)
+    before = restore.LAUNCHES
+    out = restore.restore(zs, order, coefs, shift, warm, n)
+    assert restore.LAUNCHES == before + 1
+    ref = restore.restore_reference(zs, order, coefs, shift, warm, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    # a code-major zs (the Rice scan's layout) goes straight in
+    out_cm = restore.restore(zs.t().contiguous().t(), order, coefs, shift, warm, n)
+    assert torch.equal(out_cm, ref)
+
+
+def test_device_decode_on_card_matches_cpu(cuda):
+    """The whole device decode on the card against the same code on the
+    CPU, and against the signal."""
+    from flac_raster_tpu_torch import RasterFLACConverter, decode_flac_device
+    from flac_raster_tpu_torch.codec import device_decoder
+
+    rng = np.random.default_rng(4)
+    t = np.arange(12 * 4096)
+    x = 30000 + 4000 * np.sin(t / 700.0) + np.cumsum(rng.integers(-9, 10, t.size))
+    x = np.clip(x + rng.normal(0, 6, t.size), 0, 65535).astype(np.uint16).reshape(1, 96, 512)
+    conv = RasterFLACConverter(device="cuda")
+    blob = conv.encode_array(x, compression_level=5)
+    before = device_decoder.HOST_ROUTES
+    launches = (gather.LAUNCHES, rice_scan.LAUNCHES, restore.LAUNCHES)
+    got, _ = conv.decode_bytes_device(blob)
+    assert device_decoder.HOST_ROUTES == before
+    assert got.device.type == "cuda" and got.dtype == torch.uint16
+    assert np.array_equal(got.view(torch.int16).cpu().numpy().view(np.uint16), x)
+    assert all(a > b for a, b in zip((gather.LAUNCHES, rice_scan.LAUNCHES, restore.LAUNCHES),
+                                     launches))
+    gpu = decode_flac_device(blob, verify_md5=True, chunk_frames=5, device="cuda")
+    cpu = decode_flac_device(blob, verify_md5=True, chunk_frames=5, device="cpu")
+    assert gpu.route == cpu.route == "device"
+    assert torch.equal(gpu.samples.cpu(), cpu.samples)

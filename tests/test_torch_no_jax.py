@@ -12,10 +12,13 @@ _SLICE_IMPORTS = """
 import sys
 import flac_raster_tpu_torch
 from flac_raster_tpu_torch import RasterFLACConverter, decode_flac, encode_flac_device
+from flac_raster_tpu_torch import decode_flac_device
 from flac_raster_tpu_torch import _build, interop, native
-from flac_raster_tpu_torch.codec import decoder, device_encoder, encoder
+from flac_raster_tpu_torch.codec import decoder, device_decoder, device_encoder, encoder
 from flac_raster_tpu_torch.models import flac_format, metadata
 from flac_raster_tpu_torch.ops import device_codec, device_emit, normalization, pack, rice_cost
+from flac_raster_tpu_torch.ops import bits, device_decode, device_normalize, gather, restore
+from flac_raster_tpu_torch.ops import rice_scan
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flac_raster_tpu"))
