@@ -11,28 +11,45 @@ is not 0:
 
   1. the card's name and power limit; build of the CUDA kernels and the
      host C library, timed;
-  2. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it (one real level-5 chunk of the scene):
-     outputs must be identical; both are timed with CUDA events;
+  2. each encode kernel against its plain PyTorch version on the card, at
+     the shapes the main path gives it (one real level-5 chunk of the
+     scene): the Rice cost kernel, and all five pack versions on the
+     chunk's sample stream and on a level-8 mid-side chunk's; outputs
+     must be identical; all are timed with CUDA events; a hostile stream
+     must set the windowed versions' err and write nothing past the buffer;
   3. the main path: ``RasterFLACConverter(device="cuda").encode_array`` of
      the synthetic 8192x8192 uint16 scene at level 5, once to warm up and
-     once timed; both kernels must have launched during the timed run;
+     once timed, with launch counts;
   4. round trip: ``decode_bytes`` (CRC-16 checked) returns the scene;
   5. size: the compressed frames are at most 0.25% larger than the JAX
      package's for the same scene;
   6. each decode kernel against its plain PyTorch version on the card, on
      one real 4096-frame chunk of the phase-3 file (plus a lane of random
-     words for the Rice scan): outputs must be identical; both are timed
+     words for the Rice scan): outputs must be identical; all are timed
      with CUDA events;
   7. the decode path: ``RasterFLACConverter(device="cuda")
      .decode_bytes_device`` of the phase-3 file, once to warm up and once
      timed; it must stay on the device route, launch all three decode
-     kernels, and return the scene exactly, on the card.
+     kernels, and return the scene exactly, on the card;
+  8. the main path once with each sample pack version: identical bytes;
+  9. the tail path: a 10980x10980 uint16 scene (a Sentinel-2 10 m band;
+     29 433 frames and a 2 832-sample tail) at level 5: timed encode,
+     round trip on the host and on the card, size envelope;
+ 10. the stereo path: two correlated 8192x8192 uint16 bands at level 8
+     (mid-side, three apodization windows): timed encode, the frames'
+     channel assignments (one at least must use a side channel), round
+     trip on the host and on the card, size envelope.
 
-The last three lines of standard output are a JSON object with each
-kernel's numbers, the ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.  Without CUDA it exits with code 2 and
-prints no result.  It imports nothing of JAX.
+Every driven path runs with every launch count set to 0 just before it
+and read just after; a path's kernels must have launched, and every
+kernel in the last JSON line must have launched on some path.  Each
+kernel's entry carries its time, its plain version's, the bound (the
+larger of its bytes over the HBM rate and its operations over the ALU
+rate) and, where one exists, a PyTorch call computing the same function.
+The last three lines of standard output are that JSON object, the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.  Without CUDA it exits with code 2 and prints no result.  It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,10 +63,19 @@ import numpy as np
 
 SCENE_SIZE = 8192
 LEVEL = 5
+CHUNK_FRAMES = 2048     # frames per chunk of the encoder (phase 2's shapes)
 # Compressed frame bytes (file size minus metadata) of the JAX package's
 # device encoder for make_raster(8192) at level 5 (zero point 32768),
 # computed on the CPU with flac_raster_tpu at commit 58e0604.
 JAX_LEVEL5_FRAME_BYTES = 54810183
+# The same for make_raster(10980) at level 5 (29 433 full frames and a
+# 2 832-sample tail) and for make_stereo(8192) at level 8 (mid-side), with
+# flac_raster_tpu at commit 59f9b6e.
+TAIL_SIZE = 10980
+JAX_TAIL_FRAME_BYTES = 98722251
+STEREO_SIZE = 8192
+STEREO_LEVEL = 8
+JAX_STEREO_FRAME_BYTES = 100459308
 SIZE_ENVELOPE = 1.0025
 
 
@@ -66,6 +92,15 @@ def make_raster(size: int) -> np.ndarray:
     field += rng.normal(0, 12.0, field.shape)
     field -= field.min()
     return field.astype(np.uint16)
+
+
+def make_stereo(size: int) -> np.ndarray:
+    """Two correlated uint16 bands (2, size, size): band 0 is
+    make_raster(size), band 1 = clip(0.9 * band 0 + 1500 + N(0, 8))."""
+    band0 = make_raster(size)
+    rng = np.random.default_rng(7)
+    band1 = 0.9 * band0 + 1500.0 + rng.normal(0, 8.0, band0.shape)
+    return np.stack([band0, np.clip(band1, 0, 65535).astype(np.uint16)])
 
 
 def log(msg: str) -> None:
@@ -109,16 +144,185 @@ def cuda_once(fn):
     return out, start.elapsed_time(end)
 
 
-def phase_kernels(scene: np.ndarray, dev) -> list[dict]:
-    """Kernel vs plain version on one real level-5 chunk."""
+M32 = 0xFFFFFFFF
+# the card's peaks for the bounds (NVIDIA's H100 SXM data sheet):
+# HBM bytes/s, and 32-bit ALU operations/s taken at the float32 rate
+# outside the tensor cores, which no integer op exceeds
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+PACK_NAMES = {"v1": "pack_tokens", "v2": "pack_tokens_v2", "v3": "pack_tokens_v3",
+              "v4": "pack_tokens_v4", "v5": "pack_tokens_v5"}
+PACK_SOURCES = {"v1": "pack.cu", "v2": "pack_v2.cu", "v3": "pack_v3.cu", "v4": "pack_v4.cu",
+                "v5": "pack_v5.cu"}
+# the TPU kernel each version replaces: pack_tokens (v1) and the bodies
+# of its v2-v5 variants
+PACK_REPLACES = {"v1": 372, "v2": 78, "v3": 144, "v4": 203, "v5": 272}
+# launches on the driven paths (phases 3, 7, 8, 9, 10), per kernel
+TOTAL_LAUNCHES: dict[str, int] = {}
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """Least time for the work: bytes over HBM rate vs ops over ALU rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_entry(name, source, replaces, max_abs_err, ms, plain_ms, bnd, library_ms=None,
+                 **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": f"flac_raster_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": 0, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, **bnd, "library_ms": library_ms, **extra}
+
+
+def counters() -> dict:
+    from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_scan
+
+    c = {"rice_cost_sums": rice_cost.LAUNCHES, "gather_windows": gather.LAUNCHES,
+         "rice_scan_full": rice_scan.LAUNCHES, "restore": restore.LAUNCHES}
+    c.update({PACK_NAMES[v]: n for v, n in pack.LAUNCHES.items()})
+    return c
+
+
+def reset_counters() -> None:
+    from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_scan
+
+    rice_cost.LAUNCHES = gather.LAUNCHES = rice_scan.LAUNCHES = restore.LAUNCHES = 0
+    for v in pack.LAUNCHES:
+        pack.LAUNCHES[v] = 0
+
+
+def run_path(name: str, fn, need):
+    """fn() with every launch count set to 0 just before and read just
+    after; each kernel in ``need`` must have launched.  Returns (fn's
+    result, host seconds, launches)."""
     import torch
 
-    from flac_raster_tpu_torch.codec.encoder import _BPS_CODES, _SAMPLE_RATE_CODES, _blocksize_header
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {k: n for k, n in counters().items() if n}
+    for k in need:
+        if got.get(k, 0) <= 0:
+            raise AssertionError(f"{k} was not launched by {name}")
+    for k, n in got.items():
+        TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + n
+    return out, dt, got
+
+
+def encode_kernels() -> list[str]:
+    from flac_raster_tpu_torch.ops import device_emit
+
+    return ["rice_cost_sums", "pack_tokens", PACK_NAMES[device_emit.SAMPLE_PACK_VERSION]]
+
+
+def pack_bound(samples) -> dict:
+    """Token fields read once (16 B each), the used words read and written
+    once; ~12 integer operations per token."""
+    _, _, offs = samples
+    n = offs.numel()
+    used = int(offs.max()) // 32 + 2 - int(offs.min()) // 32
+    return bound(16 * n + 8 * used, 12 * n)
+
+
+def index_add_ms(samples, n_words: int) -> float:
+    """One index_add_ of the precomputed word contributions (the scatter
+    at the core of the plain version; the token arithmetic is not in it)."""
+    import torch
+
+    vals, lens, offs = samples
+    l = lens.long()
+    v = torch.where(l > 0, (vals.long() & M32) & torch.where(l >= 32, M32, (1 << l.clamp(0, 31)) - 1), 0)
+    sh = 32 - (offs & 31) - l
+    c0 = torch.where(sh >= 0, v << sh.clamp(0, 31), v >> (-sh).clamp(0, 31))
+    c1 = torch.where(sh < 0, v << (32 + sh).clamp(0, 31), 0)
+    idx = torch.cat([offs >> 5, (offs >> 5) + 1]).clamp(0, n_words)
+    contrib = torch.cat([c0, c1])
+    acc = torch.zeros(n_words + 1, dtype=torch.int64, device=vals.device)
+    return cuda_ms(lambda: acc.index_add_(0, idx, contrib), iters=10)
+
+
+def pack_versions(samples, hdr, n_words: int, N: int, label: str) -> dict:
+    """Every pack version on one sample stream, OR'd into a buffer holding
+    the chunk's header words: identical to the plain version, no err,
+    timed.  Returns {version: (ms, max_abs_err)} plus "plain"."""
+    import torch
+
+    from flac_raster_tpu_torch.ops import pack
+
+    sv, sl, so = samples
+    ref = pack.pack_tokens_reference(sv, sl, so, n_words, out=hdr.clone())
+    res = {"plain": cuda_ms(lambda: pack.pack_tokens_reference(sv, sl, so, n_words,
+                                                                 out=hdr.clone()),
+                            iters=3, warmup=1)}
+    err = torch.zeros(1, dtype=torch.int32, device=sv.device)
+    for v in pack.VERSIONS:
+        got = pack.pack_tokens(sv, sl, so, n_words, out=hdr.clone(), version=v,
+                               slots_per_group=N, err=err)
+        torch.cuda.synchronize()
+        if int(err):
+            raise AssertionError(f"pack {v} flagged the {label} sample stream")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"pack {v} differs from its plain version on the {label} stream")
+        max_err = int(((got.long() & M32) - (ref.long() & M32)).abs().max())
+        buf = hdr.clone()
+        ms = cuda_ms(lambda: pack.pack_tokens(sv, sl, so, n_words, out=buf, version=v,
+                                              slots_per_group=N, err=err), iters=20)
+        res[v] = (ms, max_err)
+    log(f"pack versions, {label} sample stream ({so.numel()} tokens): identical to plain "
+        "(tolerance 0); " + ", ".join(f"{v} {res[v][0]:.4f} ms" for v in pack.VERSIONS)
+        + f", plain {res['plain']:.4f} ms")
+    return res
+
+
+def hostile_pack(samples, n_words: int, N: int) -> None:
+    """A sample stream with a 200 000-bit jump mid-tile: v2-v4 must set
+    err (as the plain check does), v1/v5 must still equal plain, and no
+    version may write past n_words."""
+    import torch
+
+    from flac_raster_tpu_torch.ops import pack
+
+    sv, sl, so = samples
+    so = so.clone()
+    so[so.numel() // 2 + 37 :] += 200_000    # inside a sub-tile and a tile
+    n2 = n_words + 200_000 // 32
+    expect = {v: pack.window_err_reference(sl.cpu(), so.cpu(), v, N) for v in pack.VERSIONS}
+    ref = pack.pack_tokens_reference(sv, sl, so, n2)
+    err = torch.zeros(1, dtype=torch.int32, device=sv.device)
+    for v in pack.VERSIONS:
+        buf = torch.full((n2 + 256,), -1, dtype=torch.int32, device=sv.device)
+        buf[:n2] = 0
+        err.zero_()
+        pack.pack_tokens(sv, sl, so, n2, out=buf[:n2], version=v, slots_per_group=N, err=err)
+        torch.cuda.synchronize()
+        if not bool((buf[n2:] == -1).all()):
+            raise AssertionError(f"pack {v} wrote past n_words")
+        if bool(int(err)) != expect[v] or expect[v] != (v in pack.WINDOWED):
+            raise AssertionError(f"pack {v}: err {int(err)}, plain check {expect[v]}")
+        if v not in pack.WINDOWED and not torch.equal(buf[:n2], ref):
+            raise AssertionError(f"pack {v} differs from plain on the hostile stream")
+    log("hostile sample stream: v2-v4 set err as the plain check does, v1/v5 equal plain, "
+        "nothing written past n_words")
+
+
+def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
+    """Encode kernels vs plain versions on one real level-5 chunk, and the
+    pack versions on a level-8 mid-side chunk too."""
+    import torch
+
+    from flac_raster_tpu_torch.codec.encoder import (
+        _BPS_CODES, _SAMPLE_RATE_CODES, EncoderConfig, _blocksize_header,
+    )
     from flac_raster_tpu_torch.ops import device_codec as dc
     from flac_raster_tpu_torch.ops import device_emit as de
     from flac_raster_tpu_torch.ops import pack, rice_cost
 
-    N, F = 4096, 2048
+    N, F = 4096, CHUNK_FRAMES
     rows = torch.from_numpy(scene.reshape(-1)[: F * N].view(np.int16)).to(dev).view(torch.uint16)
     x = de.normalize(rows.reshape(F, 1, N), 1 << 15)
     blocks = x.reshape(F, N)
@@ -136,7 +340,7 @@ def phase_kernels(scene: np.ndarray, dev) -> list[dict]:
     torch.cuda.synchronize()
     rice_err = max(
         int((sums_k.long() - sums_p.long()).abs().max()),
-        int(((zmax_k.long() & 0xFFFFFFFF) - (zmax_p.long() & 0xFFFFFFFF)).abs().max()),
+        int(((zmax_k.long() & M32) - (zmax_p.long() & M32)).abs().max()),
     )
     for k in range(rice_cost.KMAX + 1):
         if not torch.equal(sums_k[:, k], sums_p[:, k]):
@@ -145,46 +349,54 @@ def phase_kernels(scene: np.ndarray, dev) -> list[dict]:
         raise AssertionError("rice_cost_sums zmax differs from its plain version")
     rice_ms = cuda_ms(lambda: rice_cost.rice_cost_sums(z, parts), iters=20)
     rice_plain_ms = cuda_ms(lambda: rice_cost.rice_cost_sums_reference(z, parts), iters=3, warmup=1)
+    # z read once, the (B, 21, parts) sums and (B, parts) maxima written
+    # once; a shift, a clamp and an add per sample and parameter
+    rice_bound = bound(z.numel() * 4 + (sums_k.numel() + zmax_k.numel()) * 4,
+                       z.numel() * (rice_cost.KMAX + 1) * 3)
     log(f"rice_cost_sums: identical to plain at every k (tolerance 0: integer table); "
-        f"kernel {rice_ms:.4f} ms, plain {rice_plain_ms:.4f} ms")
+        f"kernel {rice_ms:.4f} ms, plain {rice_plain_ms:.4f} ms, bound {rice_bound}")
     del z, sums_k, sums_p, zmax_k, zmax_p
 
     plan = dc.plan_blocks(blocks, blocksize=N, bps=16, max_lpc_order=8,
                           max_partition_order=6, use_lpc=True)
     bs_code, bs_tail_val, bs_tail_bits = _blocksize_header(N)
-    tok = de.emit_tokens(
-        x, plan, 0, blocksize=N, bps=16, sr_code=_SAMPLE_RATE_CODES.get(96000, 0),
-        bps_code=_BPS_CODES[16], bs_code=bs_code, bs_tail_bits=bs_tail_bits,
-        bs_tail_val=bs_tail_val, max_partition_order=6,
-    )
+    layout = dict(blocksize=N, bps=16, sr_code=_SAMPLE_RATE_CODES.get(96000, 0),
+                  bps_code=_BPS_CODES[16], bs_code=bs_code, bs_tail_bits=bs_tail_bits,
+                  bs_tail_val=bs_tail_val, max_partition_order=6)
+    tok = de.emit_tokens(x, plan, 0, **layout)
     n_words = de.worst_case_words(F, 1, N, 16)
-    log(f"pack_tokens input: header {tok['header'][0].numel()} + samples "
+    log(f"pack input, level 5: header {tok['header'][0].numel()} + samples "
         f"{tok['samples'][0].numel()} tokens, {n_words} words")
+    hdr = pack.pack_tokens(*tok["header"], n_words)
+    l5 = pack_versions(tok["samples"], hdr, n_words, N, "level-5")
+    l5_bound = pack_bound(tok["samples"])
+    l5_lib = index_add_ms(tok["samples"], n_words)
+    hostile_pack(tok["samples"], n_words, N)
+    del plan, tok, hdr, lpc, blocks, x
 
-    def packed(fn):
-        words = fn(*tok["header"], n_words)
-        return fn(*tok["samples"], n_words, out=words)
+    # one level-8 mid-side chunk of the stereo scene
+    cfg = EncoderConfig.from_level(8)
+    lr = np.ascontiguousarray(stereo.reshape(2, -1)[:, : F * N])
+    xs = de.normalize(torch.from_numpy(lr.view(np.int16)).to(dev).view(torch.uint16)
+                      .reshape(2, F, N).permute(1, 0, 2), 1 << 15)
+    plan, xs, codes, ch_bps = de._plan_mid_side(
+        xs, 16, blocksize=N, max_lpc_order=cfg.max_lpc_order, max_partition_order=6,
+        use_lpc=True, apodizations=cfg.apodizations)
+    tok = de.emit_tokens(xs, plan, 0, chan_code=codes, ch_bps=ch_bps, **layout)
+    n_words = de.worst_case_words(F, 2, N, 17)
+    hdr = pack.pack_tokens(*tok["header"], n_words)
+    l8 = pack_versions(tok["samples"], hdr, n_words, N, "level-8 mid-side")
+    del plan, tok, hdr, xs
 
-    w_k = packed(pack.pack_tokens)
-    w_p = packed(pack.pack_tokens_reference)
-    torch.cuda.synchronize()
-    pack_err = int(((w_k.long() & 0xFFFFFFFF) - (w_p.long() & 0xFFFFFFFF)).abs().max())
-    if not torch.equal(w_k, w_p):
-        raise AssertionError("pack_tokens differs from its plain version")
-    pack_ms = cuda_ms(lambda: packed(pack.pack_tokens), iters=20)
-    pack_plain_ms = cuda_ms(lambda: packed(pack.pack_tokens_reference), iters=3, warmup=1)
-    log(f"pack_tokens: words identical to plain (tolerance 0); kernel {pack_ms:.4f} ms, "
-        f"plain {pack_plain_ms:.4f} ms (header + sample stream of one chunk)")
-    return [
-        {"name": "rice_cost_sums", "route": "cuda",
-         "source": "flac_raster_tpu_torch/csrc/rice_cost.cu",
-         "replaces": "flac_raster_tpu/ops/pallas_kernels.py:172",
-         "max_abs_err": rice_err, "ms": rice_ms, "plain_ms": rice_plain_ms},
-        {"name": "pack_tokens", "route": "cuda",
-         "source": "flac_raster_tpu_torch/csrc/pack.cu",
-         "replaces": "flac_raster_tpu/ops/pallas_pack.py:372",
-         "max_abs_err": pack_err, "ms": pack_ms, "plain_ms": pack_plain_ms},
-    ]
+    out = [kernel_entry("rice_cost_sums", "rice_cost.cu",
+                        "flac_raster_tpu/ops/pallas_kernels.py:172", rice_err, rice_ms,
+                        rice_plain_ms, rice_bound)]
+    for v in pack.VERSIONS:
+        out.append(kernel_entry(
+            PACK_NAMES[v], PACK_SOURCES[v], f"flac_raster_tpu/ops/pallas_pack.py:{PACK_REPLACES[v]}",
+            max(l5[v][1], l8[v][1]), l5[v][0], l5["plain"], l5_bound, l5_lib,
+            ms_l8_midside=l8[v][0], plain_ms_l8_midside=l8["plain"]))
+    return out
 
 
 def profile_encode(conv, scene) -> None:
@@ -240,8 +452,14 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         raise AssertionError("gather_windows read past the body")
     a_ms = cuda_ms(lambda: gather.gather_windows(body, word0, W), iters=20)
     a_plain_ms = cuda_ms(lambda: gather.gather_windows_reference(body, word0, W), iters=3, warmup=1)
+    # the library yardstick: one advanced-indexing read of a zero-padded body
+    padded = torch.cat([body, torch.zeros(W, dtype=body.dtype, device=dev)])
+    cols = torch.arange(W, device=dev)
+    a_lib_ms = cuda_ms(lambda: padded[word0[:, None] + cols], iters=20)
+    a_bound = bound(2 * word0.numel() * W * 4, 0)       # each window word read and written
     log(f"gather_windows: identical to plain, zeros past the body (tolerance 0); "
-        f"kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms")
+        f"kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms, index read {a_lib_ms:.4f} ms, "
+        f"bound {a_bound}")
 
     windows = win_k[:F]
     eb = torch.full((F,), si.bits_per_sample, dtype=torch.int64, device=dev)
@@ -267,6 +485,10 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     if err_k[:F].any():
         raise AssertionError("rice_scan_full flagged a lane of a valid file")
     b_ms = cuda_ms(lambda: rice_scan.rice_scan_full(words_b, *scan_args, N), iters=10, warmup=1)
+    # words and the lane headers read, zs written; ~16 integer operations
+    # per code this run decodes (lanes that end in err stop early)
+    codes = int(torch.where(err_k, 0, scan_args[4].long()).sum())
+    b_bound = bound(words_b.numel() * 4 + 7 * 4 * words_b.shape[0] + zs_k.numel() * 4, 16 * codes)
     log(f"rice_scan_full: zs, rend and err identical to plain (tolerance 0), hostile lane "
         f"err={bool(err_k[-1])}; kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms (one call)")
 
@@ -282,34 +504,29 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     if not torch.equal(sig_k, sig_p):
         raise AssertionError("restore differs from its plain version")
     c_ms = cuda_ms(lambda: restore.restore(*rest_args), iters=10, warmup=1)
+    # zs read and samples written once; a multiply and an add per tap
+    c_bound = bound(2 * zs_k.numel() * 4, 2 * N * int(rest_args[1].long().sum()))
     log(f"restore: identical to plain (tolerance 0: int32 wraparound); kernel {c_ms:.4f} ms, "
-        f"plain {c_plain_ms:.4f} ms (one call)")
+        f"plain {c_plain_ms:.4f} ms (one call), bound {c_bound}")
     return [
-        {"name": "gather_windows", "route": "cuda",
-         "source": "flac_raster_tpu_torch/csrc/gather.cu",
-         "replaces": "flac_raster_tpu/ops/pallas_gather.py:60",
-         "max_abs_err": int((win_k.long() - win_p.long()).abs().max()),
-         "ms": a_ms, "plain_ms": a_plain_ms},
-        {"name": "rice_scan_full", "route": "cuda",
-         "source": "flac_raster_tpu_torch/csrc/rice_scan.cu",
-         "replaces": "flac_raster_tpu/ops/pallas_rice_scan2.py:242",
-         "max_abs_err": scan_err, "ms": b_ms, "plain_ms": b_plain_ms},
-        {"name": "restore", "route": "cuda",
-         "source": "flac_raster_tpu_torch/csrc/restore.cu",
-         "replaces": "flac_raster_tpu/ops/device_decode.py:562",
-         "max_abs_err": rest_err, "ms": c_ms, "plain_ms": c_plain_ms},
+        kernel_entry("gather_windows", "gather.cu", "flac_raster_tpu/ops/pallas_gather.py:60",
+                     int((win_k.long() - win_p.long()).abs().max()), a_ms, a_plain_ms,
+                     a_bound, a_lib_ms),
+        kernel_entry("rice_scan_full", "rice_scan.cu",
+                     "flac_raster_tpu/ops/pallas_rice_scan2.py:242", scan_err, b_ms,
+                     b_plain_ms, b_bound),
+        kernel_entry("restore", "restore.cu", "flac_raster_tpu/ops/device_decode.py:562",
+                     rest_err, c_ms, c_plain_ms, c_bound),
     ]
 
 
-def phase_decode(blob: bytes, scene: np.ndarray, dev, card: str) -> dict:
-    """decode_bytes_device of the scene's file: warm-up, timed run with
-    launch counts, exactness on the card, then a profiled run."""
+def decode_on_card(blob: bytes, raster: np.ndarray, dev, card: str, label: str) -> None:
+    """decode_bytes_device of a file: warm-up, a timed run with launch
+    counts, the device route, and the raster exact on the card."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from flac_raster_tpu_torch import RasterFLACConverter, decode_flac_device
     from flac_raster_tpu_torch.codec import device_decoder
-    from flac_raster_tpu_torch.ops import gather, restore, rice_scan
 
     conv = RasterFLACConverter(device="cuda")
     t0 = time.perf_counter()
@@ -317,32 +534,35 @@ def phase_decode(blob: bytes, scene: np.ndarray, dev, card: str) -> dict:
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     host_routes = device_decoder.HOST_ROUTES
-    gather.LAUNCHES = rice_scan.LAUNCHES = restore.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    data, _ = conv.decode_bytes_device(blob)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"gather_windows": gather.LAUNCHES, "rice_scan_full": rice_scan.LAUNCHES,
-                "restore": restore.LAUNCHES}
+    (data, _), dt, launches = run_path(f"the {label} decode",
+                                       lambda: conv.decode_bytes_device(blob), DECODE_KERNELS)
     if device_decoder.HOST_ROUTES != host_routes:
-        raise AssertionError("the decode took the host route")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched by the decode path")
-    if data.device.type != "cuda" or data.dtype != torch.uint16 or tuple(data.shape) != (1,) + scene.shape:
+        raise AssertionError(f"the {label} decode took the host route")
+    raster = raster if raster.ndim == 3 else raster[None]
+    if data.device.type != "cuda" or data.dtype != torch.uint16 or data.shape != raster.shape:
         raise AssertionError(f"decoded raster {data.device} {data.dtype} {tuple(data.shape)}")
-    if not torch.equal(data[0].view(torch.int16), torch.from_numpy(scene.view(np.int16)).to(dev)):
-        raise AssertionError("decoded raster on the card differs from the scene")
+    if not torch.equal(data.view(torch.int16), torch.from_numpy(raster.view(np.int16)).to(dev)):
+        raise AssertionError(f"the {label} raster decoded on the card differs")
     peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"decode: {dt:.3f} s timed ({warm:.3f} s warm-up), {scene.nbytes / dt / 1e6:.2f} MB/s raw, "
-        f"exact on the card, launches {launches}, peak device memory {peak:.0f} MiB | {card}")
+    log(f"{label} decode: {dt:.3f} s timed ({warm:.3f} s warm-up), "
+        f"{raster.nbytes / dt / 1e6:.2f} MB/s raw, exact on the card, launches {launches}, "
+        f"peak device memory {peak:.0f} MiB | {card}")
     del data
-
     dec = decode_flac_device(blob, device=dev)
     if dec.route != "device":
         raise AssertionError(f"decode_flac_device took route {dec.route!r}")
-    del dec
+
+
+def profile_decode(blob: bytes) -> None:
+    """Device busy share, runtime sync/copy calls and host stages of one
+    more decode (torch.profiler); informational only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flac_raster_tpu_torch import RasterFLACConverter
+
+    conv = RasterFLACConverter(device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         conv.decode_bytes_device(blob)
@@ -363,7 +583,58 @@ def phase_decode(blob: bytes, scene: np.ndarray, dev, card: str) -> dict:
         if e.key.startswith("frtt.decode") and e.device_type.name == "CPU":
             log(f"  stage {e.key}: host {e.cpu_time_total / 1e3:.1f} ms over {e.count} calls")
     log(averages.table(sort_by="cuda_time_total", row_limit=20, max_name_column_width=50))
-    return launches
+
+
+DECODE_KERNELS = ["gather_windows", "rice_scan_full", "restore"]
+
+
+def encode_path(conv, raster: np.ndarray, level: int, label: str, card: str,
+                warm_raster: np.ndarray | None = None) -> bytes:
+    """A warm-up encode, then encode_array timed with launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    conv.encode_array(raster if warm_raster is None else warm_raster, compression_level=level)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    blob, dt, launches = run_path(f"the {label} encode",
+                                  lambda: conv.encode_array(raster, compression_level=level),
+                                  encode_kernels())
+    log(f"{label} encode: {dt:.3f} s timed ({warm:.3f} s warm-up), "
+        f"{raster.nbytes / dt / 1e6:.2f} MB/s, ratio {raster.nbytes / len(blob):.4f}, "
+        f"{len(blob)} bytes, launches {launches} | {card}")
+    return blob
+
+
+def host_round_trip(conv, blob: bytes, raster: np.ndarray, label: str) -> None:
+    raster = raster if raster.ndim == 3 else raster[None]
+    data, _ = conv.decode_bytes(blob, verify_crc=True)
+    if data.shape != raster.shape or data.dtype != raster.dtype or not np.array_equal(data, raster):
+        raise AssertionError(f"the {label} raster decoded on the host differs")
+    log(f"{label} round trip on the host exact: {data.shape} {data.dtype}, CRC-16 checked")
+
+
+def size_envelope(blob: bytes, jax_frame_bytes: int, label: str) -> None:
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
+
+    frame_bytes = len(blob) - parse_flac_metadata(blob)[2]
+    limit = jax_frame_bytes * SIZE_ENVELOPE
+    log(f"{label} frame bytes: port {frame_bytes}, JAX package {jax_frame_bytes}, "
+        f"ratio {frame_bytes / jax_frame_bytes:.6f} (limit {SIZE_ENVELOPE})")
+    if frame_bytes > limit:
+        raise AssertionError(f"{label}: port frames {frame_bytes} B exceed {limit:.0f} B")
+
+
+def chan_histogram(blob: bytes) -> dict:
+    """Frames per channel assignment, read from each frame header."""
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
+
+    _, blocks, start = parse_flac_metadata(blob)
+    sizes = parse_layout_block(blocks).sizes
+    starts = start + np.cumsum(sizes) - sizes
+    codes = np.frombuffer(blob, np.uint8)[starts + 3] >> 4
+    names = {1: "L/R", 8: "L/S", 9: "R/S", 10: "M/S"}
+    return {names.get(int(c), str(int(c))): int(n) for c, n in zip(*np.unique(codes, return_counts=True))}
 
 
 def main() -> int:
@@ -373,9 +644,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from flac_raster_tpu_torch import RasterFLACConverter, _build, native
-    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
-    from flac_raster_tpu_torch.ops import pack, rice_cost
+    from flac_raster_tpu_torch.ops import device_emit, pack
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = smi()
     kind = torch.cuda.get_device_name(0)
@@ -390,59 +661,78 @@ def main() -> int:
 
     t0 = time.perf_counter()
     scene = make_raster(SCENE_SIZE)
-    log(f"scene {scene.shape} {scene.dtype} [{scene.min()}, {scene.max()}] in "
-        f"{time.perf_counter() - t0:.1f} s")
+    stereo = make_stereo(STEREO_SIZE)
+    log(f"scenes: {scene.shape} {scene.dtype} [{scene.min()}, {scene.max()}], stereo "
+        f"{stereo.shape} in {time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: kernels vs plain versions at main-path shapes")
-    kernels = phase_kernels(scene, dev)
+    log("phase 2: encode kernels vs plain versions at main-path shapes")
+    kernels = phase_kernels(scene, stereo, dev)
     torch.cuda.empty_cache()
 
-    log("phase 3: main path, 8192x8192 uint16 at level 5")
+    log(f"phase 3: main path, 8192x8192 uint16 at level 5 (sample pack "
+        f"{device_emit.SAMPLE_PACK_VERSION})")
     conv = RasterFLACConverter(device="cuda", compute_md5=False)
-    t0 = time.perf_counter()
-    conv.encode_array(scene, compression_level=LEVEL)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    rice_cost.LAUNCHES = 0
-    pack.LAUNCHES = 0
-    t0 = time.perf_counter()
-    blob = conv.encode_array(scene, compression_level=LEVEL)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"rice_cost_sums": rice_cost.LAUNCHES, "pack_tokens": pack.LAUNCHES}
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} was not launched by the main path")
-    mbps = scene.nbytes / dt / 1e6
-    log(f"encode: {dt:.3f} s timed ({warm:.3f} s warm-up), {mbps:.2f} MB/s, "
-        f"ratio {scene.nbytes / len(blob):.4f}, {len(blob)} bytes, launches {launches} "
-        f"| {card}")
+    blob = encode_path(conv, scene, LEVEL, "level-5", card)
     profile_encode(conv, scene)
 
     log("phase 4: round trip")
-    data, meta = conv.decode_bytes(blob, verify_crc=True)
-    if data.shape != (1,) + scene.shape or data.dtype != scene.dtype or not np.array_equal(data[0], scene):
-        raise AssertionError("decoded raster differs from the scene")
-    log(f"round trip exact: {data.shape} {data.dtype}, CRC-16 checked")
+    host_round_trip(conv, blob, scene, "level-5")
 
     log("phase 5: size envelope")
-    frame_bytes = len(blob) - parse_flac_metadata(blob)[2]
-    limit = JAX_LEVEL5_FRAME_BYTES * SIZE_ENVELOPE
-    log(f"frame bytes: port {frame_bytes}, JAX package {JAX_LEVEL5_FRAME_BYTES}, "
-        f"ratio {frame_bytes / JAX_LEVEL5_FRAME_BYTES:.6f} (limit {SIZE_ENVELOPE})")
-    if frame_bytes > limit:
-        raise AssertionError(f"port frames {frame_bytes} B exceed {limit:.0f} B")
+    size_envelope(blob, JAX_LEVEL5_FRAME_BYTES, "level-5")
 
     log("phase 6: decode kernels vs plain versions at main-path shapes")
     kernels += phase_decode_kernels(blob, dev)
     torch.cuda.empty_cache()
 
     log("phase 7: decode path, 8192x8192 uint16 level-5 file")
-    launches = phase_decode(blob, scene, dev, card)
-    for k in kernels[2:]:
-        k["launches"] = launches[k["name"]]
+    decode_on_card(blob, scene, dev, card, "level-5")
+    profile_decode(blob)
 
+    log("phase 8: the main path with each sample pack version: identical bytes")
+    default = device_emit.SAMPLE_PACK_VERSION
+    try:
+        for v in pack.VERSIONS:
+            device_emit.SAMPLE_PACK_VERSION = v
+            b, dt, got = run_path(
+                f"the level-5 encode with pack {v}",
+                lambda: conv.encode_array(scene, compression_level=LEVEL),
+                ["rice_cost_sums", "pack_tokens", PACK_NAMES[v]])
+            if b != blob:
+                raise AssertionError(f"the encode with sample pack {v} differs")
+            log(f"  sample pack {v}: bytes identical, {dt:.3f} s, launches {got}")
+    finally:
+        device_emit.SAMPLE_PACK_VERSION = default
+    del scene, blob
+    torch.cuda.empty_cache()
+
+    log(f"phase 9: tail path, {TAIL_SIZE}x{TAIL_SIZE} uint16 at level 5")
+    tail_scene = make_raster(TAIL_SIZE)
+    n = tail_scene.size
+    log(f"  {n} samples: {n // 4096} full frames + a {n % 4096}-sample tail")
+    blob = encode_path(conv, tail_scene, LEVEL, "tail", card)
+    host_round_trip(conv, blob, tail_scene, "tail")
+    decode_on_card(blob, tail_scene, dev, card, "tail")
+    size_envelope(blob, JAX_TAIL_FRAME_BYTES, "tail")
+    del tail_scene, blob
+    torch.cuda.empty_cache()
+
+    log(f"phase 10: stereo path, 2x{STEREO_SIZE}x{STEREO_SIZE} uint16 at level {STEREO_LEVEL}")
+    blob = encode_path(conv, stereo, STEREO_LEVEL, "stereo", card,
+                       warm_raster=np.ascontiguousarray(stereo[:, :256]))
+    hist = chan_histogram(blob)
+    log(f"  channel assignments: {hist}")
+    if not set(hist) & {"L/S", "R/S", "M/S"}:
+        raise AssertionError("no frame of the stereo scene took a side channel")
+    host_round_trip(conv, blob, stereo, "stereo")
+    decode_on_card(blob, stereo, dev, card, "stereo")
+    size_envelope(blob, JAX_STEREO_FRAME_BYTES, "stereo")
+
+    for k in kernels:
+        k["launches"] = TOTAL_LAUNCHES.get(k["name"], 0)
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was launched by no path")
+    log(f"wall time of the whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -56,7 +56,7 @@ def _nvcc() -> str:
 
 def _out_dir() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}"
@@ -122,6 +122,10 @@ def kernels():
     lib.frtt_rice_cost_sums.restype = ctypes.c_int
     lib.frtt_pack_tokens.argtypes = [vp, vp, vp, i64, vp, i64, vp]
     lib.frtt_pack_tokens.restype = ctypes.c_int
+    for name, extra in (("v2", [vp]), ("v3", [i32, vp]), ("v4", [vp]), ("v5", [])):
+        fn = getattr(lib, f"frtt_pack_tokens_{name}")
+        fn.argtypes = [vp, vp, vp, i64, vp, i64, *extra, vp]
+        fn.restype = ctypes.c_int
     lib.frtt_gather_windows.argtypes = [vp, i64, vp, i64, i64, vp, vp]
     lib.frtt_gather_windows.restype = ctypes.c_int
     lib.frtt_rice_scan_full.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, vp, vp, i32,

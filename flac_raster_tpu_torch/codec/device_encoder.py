@@ -3,11 +3,15 @@ compressed words come back.
 
 The port of ``flac_raster_tpu.codec.device_encoder.encode_flac_device``.
 Each chunk of full frames is copied to the device, planned and emitted
-there (``ops/device_emit.plan_and_emit``: the Rice cost kernel and two
-launches of the pack kernel), and the used prefix of its word buffer is
-copied back to pinned host memory.  The host byteswaps it to big-endian,
-patches every frame's CRC-8/CRC-16 with the native C pass, and writes
-STREAMINFO and the FRTP v2 layout block.
+there (``ops/device_emit.plan_and_emit``: the Rice cost kernel, the v1
+pack of the header stream and the windowed pack of the sample stream;
+2-channel streams search mid-side there too), and the used prefix of its
+word buffer is copied back to pinned host memory.  The host byteswaps it
+to big-endian, patches every frame's CRC-8/CRC-16 with the native C pass,
+and writes STREAMINFO and the FRTP v2 layout block.  A partial last frame
+is encoded on the host (``codec/host_encoder.emit_tail_frame``), and so is
+a stream shorter than one block (``host_encoder.encode_flac``), byte for
+byte as the JAX package does.
 
 The loop is deliberately simple and sequential -- copy in, compute, copy
 out, one chunk after another.  Overlapping those stages is later work.
@@ -23,6 +27,8 @@ from .. import native
 from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_header
 from ..ops.device_codec import MAX_DEVICE_BPS
 from ..ops.device_emit import plan_and_emit, worst_case_words
+from ..ops.stereo import midside_ok
+from . import host_encoder
 from .decoder import md5_of_samples
 from .encoder import _BPS_CODES, _SAMPLE_RATE_CODES, EncoderConfig, _blocksize_header
 
@@ -82,8 +88,12 @@ def encode_flac_device(
     """Encode integer samples (n, channels) to FLAC on ``device``.
 
     The bytes equal the JAX package's ``encode_flac_device`` output at
-    levels 0-2; from level 3 on, the float32 LPC stage may round
-    differently in rare blocks (the file stays valid and lossless).
+    levels 0-2, for any channel count (2-channel streams search mid-side
+    at levels 1-2 and 4-8) and any length; from level 3 on, the float32
+    LPC stage may round differently in some blocks of the full frames (the
+    file stays valid and lossless).  The tail frame and streams shorter
+    than one block are encoded on the host and are identical at every
+    level.
 
     Args:
         samples: (n,) or (n, channels) integer array.  With ``zero_point``
@@ -93,9 +103,9 @@ def encode_flac_device(
 
     Raises:
         NotImplementedError: for what the port does not cover yet -- a
-            partial tail frame or fewer samples than one block, a blocksize
-            that is not a power of two, bps > 26, mid-side stereo and
-            levels 7-8.
+            blocksize that is not a power of two, bps > 26.
+        RuntimeError: when the sample stream broke the pack kernel's
+            precondition (the chunk's words would be wrong).
     """
     dev = resolve_device(device)
     samples = np.asarray(samples)
@@ -113,20 +123,27 @@ def encode_flac_device(
             f"blocksize {blocksize} needs the host encoder, which is not ported "
             "yet (ROADMAP Queue 1 item 12)"
         )
-    n_full = n // blocksize
-    if n_full == 0 or n % blocksize:
+    if bits_per_sample > MAX_DEVICE_BPS:
         raise NotImplementedError(
-            f"{n} samples leave a partial tail frame of blocksize {blocksize}; its "
-            "host encode is not ported yet (ROADMAP Queue 1 item 12)"
+            f"the wide {bits_per_sample}-bps lane is not ported yet (ROADMAP Queue 1 item 9)"
         )
     cfg = EncoderConfig.from_level(compression_level)
-    if channels == 2 and cfg.mid_side and bits_per_sample + 1 <= MAX_DEVICE_BPS:
-        raise NotImplementedError(
-            "mid-side stereo is not ported yet (ROADMAP Queue 1 item 5)"
-        )
-
+    sr_code = _SAMPLE_RATE_CODES.get(sample_rate, 0)
+    bps_code = _BPS_CODES[bits_per_sample]
     lo = -(1 << (bits_per_sample - 1))
     hi = (1 << (bits_per_sample - 1)) - 1
+    n_full = n // blocksize
+    if n_full == 0:
+        # one short frame: the scalar host encoder, as the JAX package
+        pcm = samples.astype(np.int64) - zero_point
+        if n and (int(pcm.min()) < lo or int(pcm.max()) > hi):
+            raise ValueError("samples exceed bits_per_sample range")
+        return host_encoder.encode_flac(
+            pcm, sample_rate, bits_per_sample, compression_level, blocksize, comments,
+            vendor, compute_md5, padding, sr_code, bps_code,
+        )
+    use_ms = midside_ok(channels, bits_per_sample, cfg.mid_side, device=True)
+
     if zero_point:
         # the subtraction happens on the device, so the dtype's whole range
         # must fit
@@ -141,8 +158,8 @@ def encode_flac_device(
     layout = dict(
         blocksize=blocksize,
         bps=bits_per_sample,
-        sr_code=_SAMPLE_RATE_CODES.get(sample_rate, 0),
-        bps_code=_BPS_CODES[bits_per_sample],
+        sr_code=sr_code,
+        bps_code=bps_code,
         bs_code=bs_code,
         bs_tail_val=bs_tail_val,
         bs_tail_bits=bs_tail_bits,
@@ -150,6 +167,7 @@ def encode_flac_device(
         max_partition_order=min(cfg.max_partition_order, 6),
         use_lpc=cfg.use_lpc,
         apodizations=cfg.apodizations,
+        mid_side=use_ms,
     )
 
     # record_function ranges name the stages in a torch.profiler trace
@@ -165,12 +183,19 @@ def encode_flac_device(
         with record_function("frtt.upload"):
             xc = _upload(samples[c0 * blocksize : c1 * blocksize], dev)
             xc = xc.reshape(Fc, blocksize, channels).permute(0, 2, 1)
-        n_words = worst_case_words(Fc, channels, blocksize, bits_per_sample)
+        n_words = worst_case_words(Fc, channels, blocksize, bits_per_sample + use_ms)
         with record_function("frtt.plan_and_emit"):
             out = plan_and_emit(xc, c0, n_words=n_words, zero_point=zero_point, **layout)
 
         with record_function("frtt.readback"):  # waits for the chunk's compute
-            frame_bits = out["frame_bits"].cpu().numpy()
+            # frame bits and the pack's err flag in one copy
+            head = torch.cat([out["frame_bits"], out["err"].long()]).cpu().numpy()
+            frame_bits, err = head[:-1], int(head[-1])
+            if err:
+                raise RuntimeError(
+                    f"frames {c0}..{c1 - 1}: the sample stream broke the precondition "
+                    "of the pack kernel; its words are not valid"
+                )
             total_bits = int(frame_bits.sum())
             used = (total_bits + 31) // 32
             if dev.type == "cuda":
@@ -190,6 +215,13 @@ def encode_flac_device(
         chunks.append(buf.tobytes())
         sizes.append(frame_bits.astype(np.int64) >> 3)
         subs.append(out["subframe_bits"][:, :-1].cpu().numpy().astype(np.int64))
+
+    if n_full * blocksize < n:
+        tail = samples[n_full * blocksize :].astype(np.int64) - zero_point
+        chunks.append(host_encoder.emit_tail_frame(
+            tail, n_full, bits_per_sample, sr_code, bps_code, cfg))
+        sizes.append(np.array([len(chunks[-1])], np.int64))
+        subs.append(np.zeros((1, channels - 1), np.int64))   # no layout entry
 
     all_sizes = np.concatenate(sizes)
     md5 = (

@@ -5,9 +5,12 @@ The port of ``flac_raster_tpu.converter.RasterFLACConverter.encode_array``
 ``decode_bytes_device`` (``:717``, ``_denormalize_device_stream`` ``:770``).
 Integer rasters whose dtype maps to <= 26 bits per sample (uint8, int8,
 uint16, int16) encode on the device with the shift normalization fused into
-the planner's prologue; files carry the same GEOSPATIAL_* comments as the
-JAX package's, so each package decodes the other's files.  Every other
-mode raises ``NotImplementedError``.
+the planner's prologue, at levels 0-8 and any size: one band per FLAC
+channel (up to 8), 2-band rasters with the mid-side search, and a pixel
+count that is not a multiple of the blocksize with a host-encoded tail
+frame.  Files carry the same GEOSPATIAL_* comments as the JAX package's,
+so each package decodes the other's files.  Every other normalization mode
+raises ``NotImplementedError`` (the shift lane is the only one ported).
 """
 
 from __future__ import annotations
@@ -64,7 +67,11 @@ class RasterFLACConverter:
         compression_level: int = 5,
         extra_comments: dict | None = None,
     ) -> bytes:
-        """Encode a (bands, h, w) or (h, w) integer raster to FLAC bytes."""
+        """Encode a (bands, h, w) or (h, w) integer raster to FLAC bytes.
+
+        Any size and 1-8 bands, levels 0-8; a 2-band raster is coded with
+        the mid-side search at levels 1-2 and 4-8.
+        """
         data = np.asarray(data)
         if data.ndim == 2:
             data = data[None]

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["plan_from_reference", "plan_to_numpy", "lpc_from_reference",
-           "decode_inputs_from_reference"]
+           "lpc_windows_from_reference", "decode_inputs_from_reference"]
 
 
 def _tensor(a, dtype) -> torch.Tensor:
@@ -41,6 +41,12 @@ def lpc_from_reference(order, qcoeffs, shift, lpc_safe, r_lpc) -> tuple:
         _tensor(lpc_safe, np.bool_),
         _tensor(r_lpc, np.int32),
     )
+
+
+def lpc_windows_from_reference(windows) -> list:
+    """JAX ``analyze_lpc_windows`` output (one ``_lpc_analyze`` tuple per
+    apodization window) -> the list ``plan_from_lpc`` takes."""
+    return [lpc_from_reference(*(np.asarray(a) for a in w)) for w in windows]
 
 
 def decode_inputs_from_reference(windows, bit_base, sf_start, frame_end) -> tuple:

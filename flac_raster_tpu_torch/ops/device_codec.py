@@ -4,10 +4,11 @@ The port of ``flac_raster_tpu/ops/device_codec.py``.  For a batch of full
 blocks (B, N) it makes every FLAC encode decision at once:
 
   * fixed predictors 0-4  -- finite differences;
-  * LPC order <= 8        -- windowed autocorrelation, batched
-                             Levinson-Durbin, estimated-order pick,
-                             error-feedback quantization (float32), exact
-                             int32 residual (``_lpc_analyze``);
+  * LPC order <= 12       -- per apodization window: windowed
+                             autocorrelation, batched Levinson-Durbin,
+                             estimated-order pick, error-feedback
+                             quantization (float32), exact int32 residual
+                             (``_lpc_analyze``); the cheapest window wins;
   * Rice parameter search -- one cost table for all candidates
                              (``ops/rice_cost``, the CUDA kernel on the card)
                              merged up the partition tree for the 4- and
@@ -313,17 +314,14 @@ def plan_from_lpc(
 
     Args:
         blocks: (B, blocksize) integer samples, |x| < 2**(bps-1).
-        lpc: list of ``_lpc_analyze`` tuples (empty: no LPC candidate).
+        lpc: list of ``_lpc_analyze`` tuples, one per apodization window
+            (empty: no LPC candidate); a later window replaces the kept
+            one only when strictly cheaper, as the JAX planner picks.
     Returns:
         plan dict of int32 tensors with the keys of ``plan_blocks``.
     """
     if bps > MAX_DEVICE_BPS:
         raise ValueError(f"device planner supports bps <= {MAX_DEVICE_BPS}")
-    if len(lpc) > 1:
-        raise NotImplementedError(
-            "several apodization windows (levels 7-8) are not ported yet "
-            "(ROADMAP Queue 1 item 5)"
-        )
     max_po = _effective_max_po(blocksize, max_partition_order, max_lpc_order)
     x = blocks.to(torch.int32)
     B, N = x.shape
@@ -349,14 +347,24 @@ def plan_from_lpc(
         cand_bits.append(torch.where(_cand(valid_a, o), bits, _BIG))
         cand_plan.append((_cand(method_a, o), _cand(po_a, o), _cand(ks_a, o), fixed_rs[o]))
 
-    if lpc:
-        order_arr, qc, shift, lpc_safe, r_lpc = lpc[0]
+    def lpc_candidate(j):
+        order_arr, qc, shift, lpc_safe, r_lpc = lpc[j]
         order_l = order_arr.long()
-        method_l, po_l, ks_l = _cand(method_a, 5), _cand(po_a, 5), _cand(ks_a, 5)
-        lpc_bits = (
-            8 + order_l * bps_e + 4 + 5 + order_l * precision + 2 + 4 + _cand(payload_a, 5)
-        )
-        lpc_bits = torch.where(_cand(valid_a, 5) & lpc_safe, lpc_bits, _BIG)
+        bits = 8 + order_l * bps_e + 4 + 5 + order_l * precision + 2 + 4 + _cand(payload_a, 5 + j)
+        bits = torch.where(_cand(valid_a, 5 + j) & lpc_safe, bits, _BIG)
+        return [order_l, qc, shift, r_lpc, _cand(method_a, 5 + j), _cand(po_a, 5 + j),
+                _cand(ks_a, 5 + j), bits]
+
+    if lpc:
+        # one candidate per apodization window (levels 7-8 have several):
+        # a later window replaces the kept one only when strictly cheaper
+        best_lpc = lpc_candidate(0)
+        for j in range(1, len(lpc)):
+            cand = lpc_candidate(j)
+            pick = cand[-1] < best_lpc[-1]
+            best_lpc = [torch.where(pick if a.dim() == 1 else pick[:, None], a, b)
+                        for a, b in zip(cand, best_lpc)]
+        order_l, qc, shift, r_lpc, method_l, po_l, ks_l, lpc_bits = best_lpc
     else:
         order_l = torch.zeros(B, dtype=torch.int64, device=dev)
         qc = torch.zeros((B, max(max_lpc_order, 1)), dtype=torch.int32, device=dev)

@@ -16,11 +16,17 @@ Two token streams go through the same kernel into the same buffer:
     nothing in a zeroed buffer), a verbatim sample, a warmup sample or a
     constant value.
 
+For a 2-channel stream with mid-side search (``plan_and_emit(mid_side=
+True)``), the four variants L, R, mid and side are planned in one batch
+and each frame keeps the cheapest channel assignment (``ops/stereo``).
+
 CRC-8/CRC-16 fields are left zero and patched on the host.  Offsets are
 int64 throughout; token values and lengths are int32 at the kernel boundary.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -36,8 +42,17 @@ from .device_codec import (
     plan_blocks,
 )
 from .pack import pack_tokens
+from .stereo import CHAN_CODES, SLOT0_VARIANT, SLOT1_VARIANT
 
-__all__ = ["plan_and_emit", "emit_plan", "emit_tokens", "normalize", "worst_case_words"]
+__all__ = [
+    "plan_and_emit", "emit_plan", "emit_tokens", "normalize", "worst_case_words",
+    "SAMPLE_PACK_VERSION",
+]
+
+# the pack kernel that takes the sample stream: v2, the fastest of the five
+# on an H100 (chip_smoke.py phase 2, numbers in PERF.md), needs the stream's
+# order and pitch, which the layout below gives; a violation sets err
+SAMPLE_PACK_VERSION = "v2"
 
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
 _UTF8_PREFIX = np.array([0x00, 0xC0, 0xE0, 0xF0, 0xF8, 0xFC], np.int64)
@@ -66,6 +81,14 @@ def normalize(x: torch.Tensor, zero_point: int) -> torch.Tensor:
     if zero_point:
         x = ((x.long() - (zero_point & 0xFFFFFFFF)) & 0xFFFFFFFF).to(torch.int32)
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def _stereo_tables(dev: torch.device) -> torch.Tensor:
+    """(3, 4) int64 on ``dev``: chan_code, slot-0 and slot-1 variant of
+    each assignment; copied up once per device, so no chunk waits on a
+    host-to-device copy."""
+    return torch.from_numpy(np.stack([CHAN_CODES, SLOT0_VARIANT, SLOT1_VARIANT])).to(dev)
 
 
 def _utf8_tokens(fi: torch.Tensor):
@@ -97,13 +120,19 @@ def emit_tokens(
     bs_tail_bits: int = 0,
     bs_tail_val: int = 0,
     max_partition_order: int = 6,
+    chan_code: torch.Tensor | None = None,
+    ch_bps: torch.Tensor | None = None,
 ) -> dict:
     """Lay out one chunk's token streams from its plan.
 
     Args:
-        x: (F, C, N) int32 PCM (after ``normalize``).
+        x: (F, C, N) int32 PCM (after ``normalize``), one signal per slot.
         plan: ``plan_blocks`` output for ``x.reshape(F * C, N)``.
         frame0: absolute index of the first frame.
+        chan_code: (F,) channel assignment per frame; None = independent
+            channels (C - 1).
+        ch_bps: (F, C) bit depth per slot; None = ``bps`` everywhere (a
+            side slot carries bps + 1).
     Returns:
         dict: ``header`` and ``samples`` -- each (vals int32, lens int32,
         offs int64), flat -- plus frame_bits (F,), total_bits () and
@@ -124,8 +153,10 @@ def emit_tokens(
     qcoeffs = field("qcoeffs", MAX_ORDER_SLOTS)
     sf_bits = field("subframe_bits")
     residual = plan["residual"].long().reshape(F, C, N)
-    chan_code = C - 1                     # independent channels
-    ch_bps = torch.full((F, C), bps, dtype=torch.int64, device=dev)
+    if chan_code is None:
+        chan_code = torch.full((F,), C - 1, dtype=torch.int64, device=dev)
+    if ch_bps is None:
+        ch_bps = torch.full((F, C), bps, dtype=torch.int64, device=dev)
 
     is_rice = (kind == KIND_FIXED) | (kind == KIND_LPC)
     is_lpc = kind == KIND_LPC
@@ -153,7 +184,7 @@ def emit_tokens(
     hdr_const = (
         (0b11111111111110 << 18) | (bs_code << 12) | (sr_code << 8) | (bps_code << 1)
     )
-    hdr32 = torch.full((F,), hdr_const | (chan_code << 4), dtype=torch.int64, device=dev)
+    hdr32 = hdr_const | (chan_code.long() << 4)
     j6 = torch.arange(6, device=dev)[None, :]
     j6c = torch.minimum(j6, n_bytes[:, None] - 1)
     frame_v = [hdr32 >> 16, hdr32 & 0xFFFF, utf8_v]
@@ -274,24 +305,61 @@ def emit_tokens(
 
 
 def emit_plan(x: torch.Tensor, plan: dict, frame0: int, *, n_words: int | None = None,
+              chan_code: torch.Tensor | None = None, ch_bps: torch.Tensor | None = None,
               **layout_kw) -> dict:
     """Emit one planned chunk: both token streams packed into one buffer.
 
+    The header stream has no order, so it takes the v1 pack; the sample
+    stream takes ``SAMPLE_PACK_VERSION``, whose precondition violations
+    land in ``err``.
+
     Returns dict: words (n_words,) int32 (uint32 bits, bit 31 first),
-    frame_bits (F,), total_bits (), subframe_bits (F, C) -- int64.
+    frame_bits (F,), total_bits (), subframe_bits (F, C) -- int64 -- and
+    err (1,) int32, nonzero when the sample stream broke the pack's
+    precondition (the words are then wrong; callers raise).
     """
     F, C, N = x.shape
     if n_words is None:
-        n_words = worst_case_words(F, C, N, layout_kw["bps"])
-    tok = emit_tokens(x, plan, frame0, **layout_kw)
+        n_words = worst_case_words(F, C, N, layout_kw["bps"] + (ch_bps is not None))
+    tok = emit_tokens(x, plan, frame0, chan_code=chan_code, ch_bps=ch_bps, **layout_kw)
     words = pack_tokens(*tok["header"], n_words)
-    pack_tokens(*tok["samples"], n_words, out=words)
+    err = torch.zeros(1, dtype=torch.int32, device=x.device)
+    pack_tokens(*tok["samples"], n_words, out=words, version=SAMPLE_PACK_VERSION,
+                slots_per_group=N, err=err)
     return {
         "words": words,
         "frame_bits": tok["frame_bits"],
         "total_bits": tok["total_bits"],
         "subframe_bits": tok["subframe_bits"],
+        "err": err,
     }
+
+
+def _plan_mid_side(x: torch.Tensor, bps: int, **plan_kw):
+    """Plan the four stereo variants of (F, 2, N) int32 frames in one batch
+    and keep each frame's cheapest assignment, on the device.
+
+    Returns (plan with (F, 2, ...) fields, slot signals (F, 2, N),
+    chan_code (F,), ch_bps (F, 2)).
+    """
+    F, _, N = x.shape
+    dev = x.device
+    L, R = x[:, 0], x[:, 1]
+    var = torch.stack([L, R, (L + R) >> 1, L - R], dim=1)            # (F, 4, N)
+    side = (torch.arange(4, device=dev) == 3).long()
+    plan = plan_blocks(var.reshape(F * 4, N), (bps + side).repeat(F), bps=bps + 1, **plan_kw)
+    bL, bR, bM, bS = plan["subframe_bits"].long().reshape(F, 4).unbind(1)
+    a = torch.argmin(torch.stack([bL + bR, bL + bS, bS + bR, bM + bS], dim=1), dim=1)
+    codes, slot0, slot1 = _stereo_tables(dev)[:, a]
+    sel = torch.stack([slot0, slot1], dim=1)                          # (F, 2)
+
+    def pick(v):
+        v4 = v.reshape(F, 4, *v.shape[1:])
+        idx = sel.reshape(F, 2, *[1] * (v4.dim() - 2)).expand(F, 2, *v4.shape[2:])
+        return torch.gather(v4, 1, idx)
+
+    plan = {k: pick(v) for k, v in plan.items()}
+    return plan, pick(var.reshape(F * 4, N)), codes, bps + (sel == 3).long()
 
 
 def plan_and_emit(
@@ -319,31 +387,31 @@ def plan_and_emit(
         x: (F, C, N) samples of any integer dtype; ``zero_point`` is
             subtracted in the fused prologue (lossless shift mode).
         frame0: absolute index of the first frame.
+        mid_side: full stereo search (C == 2, bps + 1 <= MAX_DEVICE_BPS):
+            L, R, mid and side are planned in one batch and each frame
+            keeps its cheapest assignment, as the JAX ``plan_and_emit``.
     Returns:
         ``emit_plan``'s dict.
     """
     F, C, N = x.shape
-    if mid_side:
+    if bps + mid_side > MAX_DEVICE_BPS:
         raise NotImplementedError(
-            "mid-side stereo is not ported yet (ROADMAP Queue 1 item 5)"
+            f"the wide {bps + mid_side}-bps lane is not ported yet (ROADMAP Queue 1 item 9)"
         )
-    if bps > MAX_DEVICE_BPS:
-        raise NotImplementedError(
-            f"the wide {bps}-bps lane is not ported yet (ROADMAP Queue 1 item 9)"
-        )
+    if mid_side and C != 2:
+        raise ValueError(f"mid-side search needs 2 channels, not {C}")
     x = normalize(x, zero_point)
-    plan = plan_blocks(
-        x.reshape(F * C, N),
-        blocksize=blocksize,
-        bps=bps,
-        max_lpc_order=max_lpc_order,
-        max_partition_order=max_partition_order,
-        use_lpc=use_lpc,
-        apodizations=apodizations,
-    )
+    plan_kw = dict(blocksize=blocksize, max_lpc_order=max_lpc_order,
+                   max_partition_order=max_partition_order, use_lpc=use_lpc,
+                   apodizations=apodizations)
+    chan_code = ch_bps = None
+    if mid_side:
+        plan, x, chan_code, ch_bps = _plan_mid_side(x, bps, **plan_kw)
+    else:
+        plan = plan_blocks(x.reshape(F * C, N), bps=bps, **plan_kw)
     return emit_plan(
-        x, plan, frame0, n_words=n_words, blocksize=blocksize, bps=bps,
-        sr_code=sr_code, bps_code=bps_code, bs_code=bs_code,
-        bs_tail_bits=bs_tail_bits, bs_tail_val=bs_tail_val,
+        x, plan, frame0, n_words=n_words, chan_code=chan_code, ch_bps=ch_bps,
+        blocksize=blocksize, bps=bps, sr_code=sr_code, bps_code=bps_code,
+        bs_code=bs_code, bs_tail_bits=bs_tail_bits, bs_tail_val=bs_tail_val,
         max_partition_order=max_partition_order,
     )

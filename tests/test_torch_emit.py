@@ -94,7 +94,7 @@ def test_normalize_wraps_in_uint32():
 
 @pytest.mark.parametrize(
     "kw,item",
-    [(dict(mid_side=True), "item 5"), (dict(bps=32, bps_code=7), "item 9")],
+    [(dict(mid_side=True, bps=26), "item 9"), (dict(bps=32, bps_code=7), "item 9")],
 )
 def test_unported_lanes_raise(kw, item):
     x = torch.zeros((1, 2, 4096), dtype=torch.int32)

@@ -84,25 +84,40 @@ def test_decoder_rejects_corrupt_frame(raster_samples):
         decode_flac(bytes(blob), verify_crc=True)
 
 
+def _ramp(n, channels):
+    return (np.arange(n * channels) % 3000).astype(np.int32).reshape(n, channels)
+
+
 @pytest.mark.parametrize(
     "n,kw,exc,match",
     [
-        (N + 100, dict(), NotImplementedError, "item 12"),        # partial tail frame
-        (100, dict(), NotImplementedError, "item 12"),            # n_full == 0
         (3 * 1000, dict(blocksize=1000), NotImplementedError, "item 12"),
-        (N, dict(compression_level=8), NotImplementedError, "item 5"),
         (N, dict(bits_per_sample=32), NotImplementedError, "item 9"),
-        (N, dict(channels=2), NotImplementedError, "item 5"),     # level 5 mid-side
         (N, dict(bits_per_sample=8), ValueError, "range"),
     ],
 )
 def test_unported_cases_raise(n, kw, exc, match):
     kw = dict(kw)
     bps = kw.pop("bits_per_sample", 16)
-    channels = kw.pop("channels", 1)
-    x = (np.arange(n * channels) % 3000).astype(np.int32).reshape(n, channels)
     with pytest.raises(exc, match=match):
-        encode_flac_device(x, 44100, bps, device="cpu", **kw)
+        encode_flac_device(_ramp(n, 1), 44100, bps, device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "n,level,channels",
+    [
+        (N + 100, 5, 1),          # partial tail frame
+        (100, 5, 1),              # fewer samples than one block
+        (N, 8, 1),                # several apodization windows
+        (N, 5, 2),                # mid-side search
+        (2 * N + 5, 7, 2),        # both, and a tail
+    ],
+)
+def test_formerly_unported_cases_encode(n, level, channels):
+    x = _ramp(n, channels)
+    blob = encode_flac_device(x, 44100, 16, compression_level=level, device="cpu")
+    assert np.array_equal(jax_decode(blob, verify_crc=True, verify_md5=True).samples, x)
+    assert np.array_equal(decode_flac(blob, verify_crc=True, verify_md5=True).samples, x)
 
 
 def test_cuda_device_raises_without_cuda():

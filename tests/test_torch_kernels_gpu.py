@@ -59,9 +59,9 @@ def _stream(rng, nt, max_len=32):
 def test_pack_kernel_matches_plain(cuda, seed):
     vals, lens, offs, n_words = _stream(np.random.default_rng(seed), 300_000)
     vals, lens, offs = vals.to(cuda), lens.to(cuda), offs.to(cuda)
-    before = pack.LAUNCHES
+    before = pack.LAUNCHES["v1"]
     out = pack.pack_tokens(vals, lens, offs, n_words)
-    assert pack.LAUNCHES == before + 1
+    assert pack.LAUNCHES["v1"] == before + 1
     ref = pack.pack_tokens_reference(vals, lens, offs, n_words)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
@@ -88,6 +88,114 @@ def test_pack_kernel_dense_one_bit(cuda):
     n_words = (nt + 7 + 31) // 32 + 2
     out = pack.pack_tokens(vals, lens, offs, n_words)
     assert torch.equal(out, pack.pack_tokens_reference(vals, lens, offs, n_words))
+
+
+def _sample_like_stream(rng, nt, group=4096):
+    """A stream with the sample stream's order and pitch: monotone offsets,
+    start-to-start pitch <= 32 bits, one gap of < 1024 bits per group,
+    dead slots at their neighbour's offset."""
+    lens = np.where(rng.random(nt) < 0.1, 0, rng.integers(1, 33, nt)).astype(np.int32)
+    slack = rng.integers(0, 33 - np.maximum(lens, 1))
+    pitch = np.where(lens > 0, lens + slack, 0).astype(np.int64)
+    pitch[group - 1 :: group] += rng.integers(0, 990, len(pitch[group - 1 :: group]))
+    offs = np.cumsum(pitch) - pitch + int(rng.integers(0, 500))
+    vals = rng.integers(0, 1 << 32, nt, dtype=np.uint64).astype(np.uint32)
+    return vals, lens, offs
+
+
+def _max_pitch(nt, group=4096):
+    pitch = np.full(nt, 32, np.int64)
+    pitch[group::group] += 1024 - 32
+    offs = np.cumsum(pitch) - 32
+    return np.full(nt, 0xFFFFFFFF, np.uint32), np.full(nt, 32, np.int32), offs
+
+
+def _on(cuda, vals, lens, offs):
+    return (torch.from_numpy(vals.view(np.int32)).to(cuda), torch.from_numpy(lens).to(cuda),
+            torch.from_numpy(offs.astype(np.int64)).to(cuda))
+
+
+@pytest.mark.parametrize("version", ["v2", "v3", "v4", "v5"])
+@pytest.mark.parametrize("stream", ["random", "dense_one_bit", "max_pitch"])
+def test_pack_versions_match_plain(cuda, version, stream):
+    rng = np.random.default_rng(len(stream))
+    nt = 3 * 4096 * 16 + 777
+    if stream == "random":
+        toks = _sample_like_stream(rng, nt)
+    elif stream == "dense_one_bit":
+        toks = (np.ones(nt, np.uint32), np.ones(nt, np.int32), np.arange(nt) + 7)
+    else:
+        toks = _max_pitch(nt)
+    vals, lens, offs = _on(cuda, *toks)
+    n_words = int(offs[-1]) // 32 + 3
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = pack.LAUNCHES[version]
+    out = pack.pack_tokens(vals, lens, offs, n_words, version=version, err=err)
+    assert pack.LAUNCHES[version] == before + 1
+    ref = pack.pack_tokens_reference(vals, lens, offs, n_words)
+    torch.cuda.synchronize()
+    assert int(err) == 0
+    assert torch.equal(out, ref)
+    # into a buffer that already holds another stream (the header's)
+    hdr = torch.zeros(n_words, dtype=torch.int32, device=cuda)
+    hdr[::7] = 0x01010101
+    both = pack.pack_tokens(vals, lens, offs, n_words, out=hdr.clone(), version=version, err=err)
+    assert torch.equal(both, ref | hdr)
+
+
+@pytest.mark.parametrize("version", ["v1", "v2", "v3", "v4", "v5"])
+def test_pack_versions_hostile_stream(cuda, version):
+    """A pitch far past the bound and two tokens out of order (bit ranges
+    still disjoint): v2-v4 set err exactly when the plain check does, v1/v5
+    still pack correctly, and no version writes past n_words."""
+    vals, lens, offs = _max_pitch(5 * 4096)
+    offs = offs.copy()
+    offs[300:] += 9000
+    offs[[7000, 7001]] = offs[[7001, 7000]]
+    vals_t, lens_t, offs_t = _on(cuda, vals, lens, offs)
+    n_words = int(offs[-1]) // 32 - 40          # the last tokens fall past the buffer
+    buf = torch.full((n_words + 64,), -1, dtype=torch.int32, device=cuda)
+    buf[:n_words] = 0
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    pack.pack_tokens(vals_t, lens_t, offs_t, n_words, out=buf[:n_words], version=version,
+                     err=err if version in pack.WINDOWED else None)
+    torch.cuda.synchronize()
+    assert bool((buf[n_words:] == -1).all())
+    expect = pack.window_err_reference(lens_t.cpu(), offs_t.cpu(), version)
+    assert bool(int(err)) == expect == (version in pack.WINDOWED)
+    if not expect:
+        assert torch.equal(buf[:n_words], pack.pack_tokens_reference(vals_t, lens_t, offs_t,
+                                                                    n_words))
+
+
+@pytest.mark.parametrize("level", [2, 8])
+def test_stereo_tail_encode_on_card_matches_cpu(cuda, level, monkeypatch):
+    """A 2-band raster with a tail frame, through mid-side, the windowed
+    sample pack and the host tail: identical bytes on the card and on the
+    CPU.  At level 8 the float32 LPC stage runs on the CPU for both (its
+    sums round in another order on the card), so the integer pipeline and
+    every kernel are held to the CPU's bytes."""
+    from flac_raster_tpu_torch import RasterFLACConverter, decode_flac
+    from flac_raster_tpu_torch.ops import device_codec, device_emit
+
+    float_stage = device_codec._lpc_analyze
+
+    def on_cpu(x, bps_e, *args):
+        return tuple(t.to(x.device) for t in float_stage(x.cpu(), bps_e.cpu(), *args))
+
+    monkeypatch.setattr(device_codec, "_lpc_analyze", on_cpu)
+    rng = np.random.default_rng(level)
+    t = np.arange(100 * 333)
+    b0 = 30000 + 4000 * np.sin(t / 700.0) + np.cumsum(rng.integers(-9, 10, t.size))
+    b1 = 0.9 * b0 + 1500 + rng.normal(0, 8, t.size)
+    x = np.clip(np.stack([b0, b1]), 0, 65535).astype(np.uint16).reshape(2, 100, 333)
+    launches = dict(pack.LAUNCHES)
+    gpu = RasterFLACConverter(device="cuda").encode_array(x, compression_level=level)
+    assert pack.LAUNCHES[device_emit.SAMPLE_PACK_VERSION] > launches[device_emit.SAMPLE_PACK_VERSION]
+    cpu = RasterFLACConverter(device="cpu").encode_array(x, compression_level=level)
+    assert gpu == cpu
+    data, _ = RasterFLACConverter(device="cpu").decode_bytes(gpu)
+    assert np.array_equal(data, x)
 
 
 def test_kernel_wrappers_reject_bad_input(cuda):

@@ -18,7 +18,8 @@ from flac_raster_tpu_torch.codec import decoder, device_decoder, device_encoder,
 from flac_raster_tpu_torch.models import flac_format, metadata
 from flac_raster_tpu_torch.ops import device_codec, device_emit, normalization, pack, rice_cost
 from flac_raster_tpu_torch.ops import bits, device_decode, device_normalize, gather, restore
-from flac_raster_tpu_torch.ops import rice_scan
+from flac_raster_tpu_torch.ops import rice_scan, stereo
+from flac_raster_tpu_torch.codec import host_encoder
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flac_raster_tpu"))

@@ -166,7 +166,7 @@ def test_merged_header_stream_and_shared_buffer():
 
 def test_cpu_tensor_takes_plain_version_without_a_launch():
     vals, lens, offs, n_words = _random_stream(np.random.default_rng(4), 500, 4096)
-    before = pack.LAUNCHES
+    before = dict(pack.LAUNCHES)
     _port(vals, lens, offs, n_words)
     assert pack.LAUNCHES == before
 

@@ -1,0 +1,173 @@
+"""The five pack versions of the port against the JAX package's.
+
+For each of ``v1``-``v5`` the port's ``pack_tokens(version=...)`` on the
+CPU (the plain version, the precondition check beside it) must equal the
+JAX ``pack_tokens(version=..., interpret=True)`` on a random and a
+max-pitch stream (as in tests/test_torch_pack.py) and on a sample stream that
+the port's emitter lays out for a mid-side chunk.  All three streams have
+the same token count and buffer size, so each JAX version compiles once.
+
+The port's own sample streams (mono, independent channels, mid-side,
+level 8) meet the windowed versions' precondition; a stream that breaks it
+sets ``err`` for v2-v4, which the encoder turns into an error.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from flac_raster_tpu.ops.pallas_pack import GAP_BITS, MAX_PITCH_BITS, pack_tokens as jax_pack
+from flac_raster_tpu_torch.codec.encoder import EncoderConfig
+from flac_raster_tpu_torch.ops import device_emit as tde
+from flac_raster_tpu_torch.ops import pack
+
+NT = 16384          # tokens per stream: 2 frames x 2 channels x 4096
+N = 4096
+N_WORDS = 20000
+
+
+def _random_stream(seed):
+    rng = np.random.default_rng(seed)
+    lens = np.where(rng.random(NT) < 0.15, 0, rng.integers(1, 28, NT)).astype(np.int32)
+    gaps = np.where(rng.random(NT) < 0.5, rng.integers(0, 6, NT), 0)
+    gaps[N - 1 :: N] += rng.integers(0, 900, NT // N)
+    pitch = np.where(lens > 0, np.maximum(lens + gaps, 0), 0)
+    pitch = np.minimum(pitch, MAX_PITCH_BITS + np.where(np.arange(NT) % N == N - 1, 900, 0))
+    offs = np.cumsum(pitch) - pitch + int(rng.integers(0, 200))
+    vals = (rng.integers(0, 1 << 31, NT) & ((1 << lens.astype(np.int64)) - 1)).astype(np.uint32)
+    return vals, lens, offs.astype(np.int64)
+
+
+def _max_pitch_stream():
+    vals = np.full(NT, 0x7FFFFFF, np.uint32)
+    lens = np.full(NT, 27, np.int32)
+    pitches = np.full(NT, MAX_PITCH_BITS, np.int64)
+    pitches[N::N] += GAP_BITS - MAX_PITCH_BITS + 27
+    return vals, lens, np.cumsum(pitches) - pitches[0]
+
+
+def _emitted_stream(C=2, F=2, level=8, mid_side=True, seed=5):
+    """The sample stream of one chunk laid out by the port's emitter."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(F * N)
+    L = 5000 * np.sin(t / 300.0) + rng.normal(0, 9, t.size)
+    x = np.stack([L * (1 - 0.05 * c) + rng.normal(0, 4, t.size) for c in range(C)], 0)
+    x = np.clip(x, -32768, 32767).astype(np.int32).reshape(C, F, N).transpose(1, 0, 2)
+    x[-1, -1] = rng.integers(-32768, 32768, N)                  # a verbatim subframe
+    cfg = EncoderConfig.from_level(level)
+    kw = dict(blocksize=N, max_lpc_order=cfg.max_lpc_order, use_lpc=cfg.use_lpc,
+              max_partition_order=min(cfg.max_partition_order, 6),
+              apodizations=cfg.apodizations)
+    xt = torch.from_numpy(np.ascontiguousarray(x))
+    if mid_side:
+        plan, xt, code, ch_bps = tde._plan_mid_side(xt, 16, **kw)
+    else:
+        plan, code, ch_bps = tde.plan_blocks(xt.reshape(F * C, N), bps=16, **kw), None, None
+    tok = tde.emit_tokens(xt, plan, 65000, blocksize=N, bps=16, sr_code=9, bps_code=4,
+                          bs_code=12, max_partition_order=kw["max_partition_order"],
+                          chan_code=code, ch_bps=ch_bps)
+    v, l, o = (t.numpy() for t in tok["samples"])
+    return v.view(np.uint32), l, o
+
+
+STREAMS = {"random": lambda: _random_stream(1), "max_pitch": _max_pitch_stream,
+           "mid_side": _emitted_stream}
+
+
+def _port(vals, lens, offs, version, n_words=N_WORDS):
+    err = torch.zeros(1, dtype=torch.int32)
+    out = pack.pack_tokens(torch.from_numpy(vals.view(np.int32)), torch.from_numpy(lens),
+                           torch.from_numpy(offs), n_words, version=version,
+                           slots_per_group=N, err=err)
+    return out.numpy().view(np.uint32), int(err)
+
+
+@pytest.fixture(scope="module")
+def streams():
+    out = {}
+    for name, make in STREAMS.items():
+        vals, lens, offs = make()
+        assert vals.size == NT and int(offs[-1]) // 32 + 2 < N_WORDS, name
+        out[name] = (vals, lens, offs)
+    return out
+
+
+@pytest.mark.parametrize("version", ["v1", "v2", "v3", "v4", "v5"])
+def test_versions_equal_the_jax_kernels(streams, version):
+    for name, (vals, lens, offs) in streams.items():
+        out, err = _port(vals, lens, offs, version)
+        ref = np.asarray(jax_pack(
+            jnp.asarray(vals), jnp.asarray(lens), jnp.asarray(offs.astype(np.int32)),
+            n_words=N_WORDS, slots_per_group=N, interpret=True, version=version))
+        assert err == 0, (name, version)
+        assert np.array_equal(out, ref), (name, version)
+
+
+@pytest.mark.parametrize(
+    "C,level,mid_side",
+    [(1, 5, False), (3, 5, False), (2, 2, True), (2, 8, True), (2, 0, False)],
+)
+def test_port_sample_streams_meet_the_precondition(C, level, mid_side):
+    vals, lens, offs = _emitted_stream(C=C, level=level, mid_side=mid_side, seed=C + level)
+    for version in pack.WINDOWED:
+        assert not pack.window_err_reference(torch.from_numpy(lens), torch.from_numpy(offs),
+                                             version, slots_per_group=N), version
+
+
+def _hostile():
+    """A max-pitch stream whose pitch jumps by 5000 bits mid-sub-tile, and
+    two of whose tokens are out of order (bit ranges still disjoint)."""
+    vals, lens, offs = _max_pitch_stream()
+    offs = offs.copy()
+    offs[100:] += 5000
+    offs[[9000, 9001]] = offs[[9001, 9000]]
+    return vals, lens, offs
+
+
+def test_hostile_stream_sets_err_for_the_windowed_versions():
+    vals, lens, offs = _hostile()
+    ref = pack.pack_tokens_reference(*(torch.from_numpy(a) for a in
+                                       (vals.view(np.int32), lens, offs)), N_WORDS)
+    for version in pack.VERSIONS:
+        out, err = _port(vals, lens, offs, version)
+        assert err == (version in pack.WINDOWED), version
+        # the CPU path packs every stream correctly; the card's windowed
+        # kernels drop what leaves their window -- either way it raises
+        assert np.array_equal(out, ref.numpy().view(np.uint32))
+
+
+def test_windowed_versions_need_an_err_tensor():
+    v = torch.zeros(4, dtype=torch.int32)
+    for version in pack.WINDOWED:
+        with pytest.raises(ValueError, match="err"):
+            pack.pack_tokens(v, v, v.long(), 8, version=version)
+    with pytest.raises(ValueError, match="unknown pack version"):
+        pack.pack_tokens(v, v, v.long(), 8, version="v6")
+
+
+def test_v3_window_grows_with_short_groups():
+    assert pack.tile_window_words(4096) == 4352
+    assert pack.tile_window_words(64) % 128 == 0 and pack.tile_window_words(64) > 6000
+    lens = torch.full((NT,), 27, dtype=torch.int32)
+    pitch = torch.full((NT,), 32, dtype=torch.int64)
+    pitch[64::64] += GAP_BITS - 32        # one gap per 64-token group
+    offs = torch.cumsum(pitch, 0) - 32
+    assert not pack.window_err_reference(lens, offs, "v3", slots_per_group=64)
+    assert pack.window_err_reference(lens, offs, "v3", slots_per_group=4096)
+
+
+def test_encoder_raises_on_a_pack_err(monkeypatch):
+    """The encoder reads the sample pack's err at its readback and raises;
+    no other version takes over."""
+    from flac_raster_tpu_torch import encode_flac_device
+
+    x = (np.arange(2 * N) % 7).astype(np.int16)
+    for version in pack.WINDOWED:
+        monkeypatch.setattr(tde, "SAMPLE_PACK_VERSION", version)
+        assert encode_flac_device(x, 44100, 16, compression_level=0, device="cpu")
+        with monkeypatch.context() as m:
+            m.setattr(pack, "window_err_reference", lambda *a, **k: True)
+            with pytest.raises(RuntimeError, match="precondition"):
+                encode_flac_device(x, 44100, 16, compression_level=0, device="cpu")

@@ -145,7 +145,17 @@ def test_plan_interop_round_trip(mixed_blocks):
     _assert_same(ref, interop.plan_to_numpy(plan))
 
 
-def test_several_apodizations_not_ported(mixed_blocks):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tdc.plan_blocks(torch.from_numpy(mixed_blocks[:2]), blocksize=N,
-                        apodizations=("tukey(0.5)", "welch"))
+@pytest.mark.parametrize("apod", [("tukey(0.5)", "welch"), ("welch", "tukey(0.25)", "hann")])
+def test_several_apodizations_injected_identical(mixed_blocks, apod):
+    """Each window's LPC injected: the strict first-wins pick over windows
+    gives the JAX plan (levels 7-8 search several windows)."""
+    B = mixed_blocks.shape[0]
+    cfg = dict(max_lpc_order=8, max_partition_order=6)
+    ref = {k: np.asarray(v) for k, v in jdc.plan_blocks(
+        jnp.asarray(mixed_blocks), blocksize=N, bps=16, use_lpc=True, apodizations=apod,
+        **cfg).items()}
+    lpc = interop.lpc_windows_from_reference(jdc.analyze_lpc_windows(
+        jnp.asarray(mixed_blocks), jnp.full((B,), 16, jnp.int32), max_lpc_order=8,
+        apodizations=apod))
+    _assert_same(ref, interop.plan_to_numpy(tdc.plan_from_lpc(
+        torch.from_numpy(mixed_blocks), lpc, blocksize=N, bps=16, **cfg)))
