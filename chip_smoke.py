@@ -38,7 +38,17 @@ is not 0:
  10. the stereo path: two correlated 8192x8192 uint16 bands at level 8
      (mid-side, three apodization windows): timed encode, the frames'
      channel assignments (one at least must use a side channel), round
-     trip on the host and on the card, size envelope.
+     trip on the host and on the card, size envelope;
+ 11. the wide path: a 3601x3601 float32 DEM (the grid of a 1-arc-second
+     SRTM or Copernicus GLO-30 tile, with a void of NaNs, -0.0, +-inf and a
+     NaN payload) at level 5 through the 32-bps lane: timed encode, round
+     trip bit for bit on the host and on the card with each Rice engine
+     (the chain scan K8 and the group step K9), size envelope; then the
+     Rice engines and the wide restore against their plain versions on
+     the file's chunk of 3 165 frames.
+
+Phase 6 also holds the group step K9 against its plain version (one step)
+and the grouped scan against the chain scan (the whole chunk).
 
 Every driven path runs with every launch count set to 0 just before it
 and read just after; a path's kernels must have launched, and every
@@ -76,6 +86,11 @@ JAX_TAIL_FRAME_BYTES = 98722251
 STEREO_SIZE = 8192
 STEREO_LEVEL = 8
 JAX_STEREO_FRAME_BYTES = 100459308
+# The same for make_dem(3601) at level 5 (the float32_bits fold on the host,
+# 3 165 full frames and a 3 361-sample tail at 32 bps), with flac_raster_tpu
+# at commit f95eb55.
+DEM_SIZE = 3601
+JAX_DEM_FRAME_BYTES = 28182137
 SIZE_ENVELOPE = 1.0025
 
 
@@ -92,6 +107,20 @@ def make_raster(size: int) -> np.ndarray:
     field += rng.normal(0, 12.0, field.shape)
     field -= field.min()
     return field.astype(np.uint16)
+
+
+def make_dem(size: int) -> np.ndarray:
+    """A float32 DEM in metres: (make_raster(size) - 32768) / 8, a square
+    void of NaNs (size // 10 on a side, ~1% of the pixels), one -0.0, +inf,
+    -inf and a NaN with a payload in the first column."""
+    dem = (make_raster(size).astype(np.float32) - np.float32(32768)) * np.float32(0.125)
+    v = size // 10
+    dem[v : 2 * v, 3 * v : 4 * v] = np.nan
+    dem[0, 0] = -0.0
+    dem[1, 0] = np.inf
+    dem[2, 0] = -np.inf
+    dem.view(np.uint32)[3, 0] = 0x7FA00001
+    return dem
 
 
 def make_stereo(size: int) -> np.ndarray:
@@ -177,18 +206,20 @@ def kernel_entry(name, source, replaces, max_abs_err, ms, plain_ms, bnd, library
 
 
 def counters() -> dict:
-    from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_scan
+    from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_group, rice_scan
 
     c = {"rice_cost_sums": rice_cost.LAUNCHES, "gather_windows": gather.LAUNCHES,
-         "rice_scan_full": rice_scan.LAUNCHES, "restore": restore.LAUNCHES}
+         "rice_scan_full": rice_scan.LAUNCHES, "rice_group_step": rice_group.LAUNCHES,
+         "restore": restore.LAUNCHES}
     c.update({PACK_NAMES[v]: n for v, n in pack.LAUNCHES.items()})
     return c
 
 
 def reset_counters() -> None:
-    from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_scan
+    from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_group, rice_scan
 
     rice_cost.LAUNCHES = gather.LAUNCHES = rice_scan.LAUNCHES = restore.LAUNCHES = 0
+    rice_group.LAUNCHES = 0
     for v in pack.LAUNCHES:
         pack.LAUNCHES[v] = 0
 
@@ -214,10 +245,12 @@ def run_path(name: str, fn, need):
     return out, dt, got
 
 
-def encode_kernels() -> list[str]:
+def encode_kernels(wide: bool = False) -> list[str]:
+    """The kernels an encode launches; the wide planner has no cost kernel."""
     from flac_raster_tpu_torch.ops import device_emit
 
-    return ["rice_cost_sums", "pack_tokens", PACK_NAMES[device_emit.SAMPLE_PACK_VERSION]]
+    packs = ["pack_tokens", PACK_NAMES[device_emit.SAMPLE_PACK_VERSION]]
+    return packs if wide else ["rice_cost_sums", *packs]
 
 
 def pack_bound(samples) -> dict:
@@ -426,6 +459,64 @@ def profile_encode(conv, scene) -> None:
     log(table)
 
 
+def group_step_phase(words, args, N: int, label: str) -> dict:
+    """K9 on one chunk's lanes: one step (the second of the block, from the
+    carries the first left) against its plain version, and the whole
+    grouped scan against the chain scan kernel K8 -- identical zs, rend and
+    err.  Returns the step's and the chunk's times and bounds."""
+    import torch
+
+    from flac_raster_tpu_torch.ops import rice_group, rice_scan
+
+    rstart, err, rest = args[0], args[1], args[2:]
+    B, g = words.shape[0], rice_group.GROUP
+    zs0 = torch.zeros((N, B), dtype=torch.int32, device=words.device)
+    c0 = [rstart.clone(), torch.zeros_like(rstart), err.clone()]
+    rice_group.rice_group_step(words, *c0, *rest, zs0, 0)
+    mine, ref = [c.clone() for c in c0], [c.clone() for c in c0]
+    zs_k, zs_p = zs0.clone(), zs0.clone()
+    rice_group.rice_group_step(words, *mine, *rest, zs_k, g)
+    _, plain_ms = cuda_once(
+        lambda: rice_group.rice_group_step_reference(words, *ref, *rest, zs_p, g))
+    if not (all(torch.equal(a, b) for a, b in zip(mine, ref)) and torch.equal(zs_k, zs_p)):
+        raise AssertionError(f"rice_group_step differs from its plain version on the {label} chunk")
+    step_err = int(((zs_k.long() & M32) - (zs_p.long() & M32)).abs().max())
+
+    # one step timed alone: the carries are reset outside the events
+    iters, total = 20, 0.0
+    for i in range(iters + 2):
+        for c, v in zip(mine, c0):
+            c.copy_(v)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rice_group.rice_group_step(words, *mine, *rest, zs_k, g)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end) if i >= 2 else 0.0
+    step_ms = total / iters
+
+    full = rice_scan.rice_scan_full(words, *args, N)
+    grouped = rice_group.rice_scan_grouped(words, *args, N)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grouped, full)):
+        raise AssertionError(f"the grouped scan differs from rice_scan_full on the {label} chunk")
+    chunk_ms = cuda_ms(lambda: rice_group.rice_scan_grouped(words, *args, N), iters=5, warmup=1)
+    # the step's bits, the lane constants and carries and its rows of zs;
+    # ~16 integer operations per code it decodes (as K8's bound)
+    active = rest[0] & ~c0[2]
+    codes = int(((rest[2].long() - g).clamp(0, g) * active).sum())
+    step_bits = int(((mine[0] - c0[0]).long()).sum())
+    step_bound = bound(step_bits / 8 + B * (17 + 2 * 9) + g * B * 4, 16 * codes)
+    all_codes = int((rest[2].long() * active).sum())
+    chunk_bound = bound(words.numel() * 4 + 7 * 4 * B + N * B * 4, 16 * all_codes)
+    log(f"rice_group_step, {label} chunk ({B} lanes): one step identical to plain, the "
+        f"grouped scan ({-(-N // g)} launches) identical to rice_scan_full (tolerance 0); "
+        f"step {step_ms:.4f} ms, plain step {plain_ms:.4f} ms (one call), bound {step_bound}; "
+        f"chunk {chunk_ms:.4f} ms, bound {chunk_bound}")
+    return {"step_ms": step_ms, "plain_ms": plain_ms, "bound": step_bound, "err": step_err,
+            "chunk_ms": chunk_ms, "chunk_bound": chunk_bound}
+
+
 def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     """Decode kernel vs plain version on the first chunk of F frames."""
     import torch
@@ -491,6 +582,7 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     b_bound = bound(words_b.numel() * 4 + 7 * 4 * words_b.shape[0] + zs_k.numel() * 4, 16 * codes)
     log(f"rice_scan_full: zs, rend and err identical to plain (tolerance 0), hostile lane "
         f"err={bool(err_k[-1])}; kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms (one call)")
+    k9 = group_step_phase(words_b, scan_args, N, "level-5")
 
     # the hostile lane restores with 16-bit coefficients: int32 wraparound
     coefs = torch.cat([h["coefs"], torch.from_numpy(
@@ -515,14 +607,24 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         kernel_entry("rice_scan_full", "rice_scan.cu",
                      "flac_raster_tpu/ops/pallas_rice_scan2.py:242", scan_err, b_ms,
                      b_plain_ms, b_bound),
+        kernel_entry("rice_group_step", "rice_group_step.cu",
+                     "flac_raster_tpu/ops/pallas_rice_scan.py:189", k9["err"], k9["step_ms"],
+                     k9["plain_ms"], k9["bound"], ms_chunk=k9["chunk_ms"],
+                     bound_ms_chunk=k9["chunk_bound"]["bound_ms"]),
         kernel_entry("restore", "restore.cu", "flac_raster_tpu/ops/device_decode.py:562",
                      rest_err, c_ms, c_plain_ms, c_bound),
     ]
 
 
-def decode_on_card(blob: bytes, raster: np.ndarray, dev, card: str, label: str) -> None:
-    """decode_bytes_device of a file: warm-up, a timed run with launch
-    counts, the device route, and the raster exact on the card."""
+# integer views of the same width, to compare rasters bit for bit
+_INT_VIEWS = {2: (np.int16, "int16"), 4: (np.int32, "int32")}
+
+
+def decode_on_card(blob: bytes, raster: np.ndarray, dev, card: str, label: str,
+                   scan: str = "full") -> float:
+    """decode_bytes_device of a file with one Rice engine: warm-up, a timed
+    run with launch counts, the device route, and the raster bit for bit
+    on the card.  Returns the timed seconds."""
     import torch
 
     from flac_raster_tpu_torch import RasterFLACConverter, decode_flac_device
@@ -530,28 +632,73 @@ def decode_on_card(blob: bytes, raster: np.ndarray, dev, card: str, label: str) 
 
     conv = RasterFLACConverter(device="cuda")
     t0 = time.perf_counter()
-    conv.decode_bytes_device(blob)
+    conv.decode_bytes_device(blob, scan=scan)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     host_routes = device_decoder.HOST_ROUTES
     torch.cuda.reset_peak_memory_stats()
-    (data, _), dt, launches = run_path(f"the {label} decode",
-                                       lambda: conv.decode_bytes_device(blob), DECODE_KERNELS)
+    (data, _), dt, launches = run_path(f"the {label} decode ({scan})",
+                                       lambda: conv.decode_bytes_device(blob, scan=scan),
+                                       DECODE_KERNELS[scan])
     if device_decoder.HOST_ROUTES != host_routes:
         raise AssertionError(f"the {label} decode took the host route")
     raster = raster if raster.ndim == 3 else raster[None]
-    if data.device.type != "cuda" or data.dtype != torch.uint16 or data.shape != raster.shape:
+    if (data.device.type != "cuda" or str(data.dtype) != f"torch.{raster.dtype}"
+            or data.shape != raster.shape):
         raise AssertionError(f"decoded raster {data.device} {data.dtype} {tuple(data.shape)}")
-    if not torch.equal(data.view(torch.int16), torch.from_numpy(raster.view(np.int16)).to(dev)):
+    np_int, torch_int = _INT_VIEWS[raster.itemsize]
+    if not torch.equal(data.view(getattr(torch, torch_int)),
+                       torch.from_numpy(raster.view(np_int)).to(dev)):
         raise AssertionError(f"the {label} raster decoded on the card differs")
     peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"{label} decode: {dt:.3f} s timed ({warm:.3f} s warm-up), "
-        f"{raster.nbytes / dt / 1e6:.2f} MB/s raw, exact on the card, launches {launches}, "
-        f"peak device memory {peak:.0f} MiB | {card}")
+    log(f"{label} decode ({scan} scan): {dt:.3f} s timed ({warm:.3f} s warm-up), "
+        f"{raster.nbytes / dt / 1e6:.2f} MB/s raw, bit for bit on the card, launches "
+        f"{launches}, peak device memory {peak:.0f} MiB | {card}")
     del data
-    dec = decode_flac_device(blob, device=dev)
+    dec = decode_flac_device(blob, device=dev, scan=scan)
     if dec.route != "device":
         raise AssertionError(f"decode_flac_device took route {dec.route!r}")
+    return dt
+
+
+def phase_wide_kernels(blob: bytes, dev) -> dict:
+    """The Rice engines and the wide restore against their plain versions
+    on the 32-bps file's chunk of full frames (one lane per frame)."""
+    import torch
+
+    from flac_raster_tpu_torch.codec.device_decoder import prepare_frames
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
+    from flac_raster_tpu_torch.ops import gather, restore
+    from flac_raster_tpu_torch.ops.device_decode import parse_header
+
+    si, blocks, frame_start = parse_flac_metadata(blob)
+    N, F = si.max_blocksize, si.total_samples // si.max_blocksize
+    prep = prepare_frames(blob, frame_start, parse_layout_block(blocks), si, 0, F, dev)
+    windows = gather.gather_windows(prep["body"], prep["word0"], prep["W"])
+    h = parse_header(windows.long() & M32, prep["sf"][:, 0],
+                     torch.full((F,), si.bits_per_sample, device=dev),
+                     torch.zeros(F, dtype=torch.bool, device=dev), N=N, wide=True)
+    args = [h[k] for k in ("rstart", "err", "is_rice", "order", "n_codes", "pbits", "psm")]
+    k9 = group_step_phase(windows, args, N, "wide")
+
+    from flac_raster_tpu_torch.ops import rice_scan
+
+    zs = rice_scan.rice_scan_full(windows, *args, N)[0]
+    rest_args = [zs, h["order"], h["coefs"], h["shift"], h["warm"], N]
+    sig_k = restore.restore(*rest_args, wide=True)
+    sig_p, plain_ms = cuda_once(lambda: restore.restore_reference(*rest_args, wide=True))
+    if not torch.equal(sig_k, sig_p):
+        raise AssertionError("the wide restore differs from its plain version")
+    ms = cuda_ms(lambda: restore.restore(*rest_args, wide=True), iters=10, warmup=1)
+    # zs read and samples written once; a 64-bit multiply-add per tap
+    # counted as two operations
+    rest_bound = bound(2 * zs.numel() * 4, 2 * N * int(h["order"].long().sum()))
+    log(f"restore, wide ({F} lanes): identical to plain (tolerance 0: int64 sum, int32 "
+        f"wraparound); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call), bound {rest_bound}")
+    rest_err = int((sig_k.long() - sig_p.long()).abs().max())
+    return {"k9": k9, "restore": {"ms_wide": ms, "plain_ms_wide": plain_ms,
+                                  "bound_ms_wide": rest_bound["bound_ms"],
+                                  "max_abs_err_wide": rest_err}}
 
 
 def profile_decode(blob: bytes) -> None:
@@ -585,11 +732,13 @@ def profile_decode(blob: bytes) -> None:
     log(averages.table(sort_by="cuda_time_total", row_limit=20, max_name_column_width=50))
 
 
-DECODE_KERNELS = ["gather_windows", "rice_scan_full", "restore"]
+# the kernels a decode launches, by Rice engine
+DECODE_KERNELS = {"full": ["gather_windows", "rice_scan_full", "restore"],
+                  "group": ["gather_windows", "rice_group_step", "restore"]}
 
 
 def encode_path(conv, raster: np.ndarray, level: int, label: str, card: str,
-                warm_raster: np.ndarray | None = None) -> bytes:
+                warm_raster: np.ndarray | None = None, wide: bool = False) -> bytes:
     """A warm-up encode, then encode_array timed with launch counts."""
     import torch
 
@@ -599,7 +748,7 @@ def encode_path(conv, raster: np.ndarray, level: int, label: str, card: str,
     warm = time.perf_counter() - t0
     blob, dt, launches = run_path(f"the {label} encode",
                                   lambda: conv.encode_array(raster, compression_level=level),
-                                  encode_kernels())
+                                  encode_kernels(wide))
     log(f"{label} encode: {dt:.3f} s timed ({warm:.3f} s warm-up), "
         f"{raster.nbytes / dt / 1e6:.2f} MB/s, ratio {raster.nbytes / len(blob):.4f}, "
         f"{len(blob)} bytes, launches {launches} | {card}")
@@ -609,9 +758,10 @@ def encode_path(conv, raster: np.ndarray, level: int, label: str, card: str,
 def host_round_trip(conv, blob: bytes, raster: np.ndarray, label: str) -> None:
     raster = raster if raster.ndim == 3 else raster[None]
     data, _ = conv.decode_bytes(blob, verify_crc=True)
-    if data.shape != raster.shape or data.dtype != raster.dtype or not np.array_equal(data, raster):
+    if (data.shape != raster.shape or data.dtype != raster.dtype
+            or data.tobytes() != raster.tobytes()):
         raise AssertionError(f"the {label} raster decoded on the host differs")
-    log(f"{label} round trip on the host exact: {data.shape} {data.dtype}, CRC-16 checked")
+    log(f"{label} round trip on the host bit for bit: {data.shape} {data.dtype}, CRC-16 checked")
 
 
 def size_envelope(blob: bytes, jax_frame_bytes: int, label: str) -> None:
@@ -727,6 +877,30 @@ def main() -> int:
     host_round_trip(conv, blob, stereo, "stereo")
     decode_on_card(blob, stereo, dev, card, "stereo")
     size_envelope(blob, JAX_STEREO_FRAME_BYTES, "stereo")
+    del stereo, blob
+    torch.cuda.empty_cache()
+
+    log(f"phase 11: wide path, {DEM_SIZE}x{DEM_SIZE} float32 DEM at level {LEVEL}")
+    dem = make_dem(DEM_SIZE)
+    n = dem.size
+    log(f"  {n} samples at 32 bps: {n // 4096} full frames + a {n % 4096}-sample tail, "
+        f"{int(np.isnan(dem).sum())} NaNs")
+    blob = encode_path(conv, dem, LEVEL, "wide", card, wide=True)
+    host_round_trip(conv, blob, dem, "wide")
+    for scan in ("full", "group"):
+        decode_on_card(blob, dem, dev, card, "wide", scan=scan)
+    size_envelope(blob, JAX_DEM_FRAME_BYTES, "wide")
+    wide = phase_wide_kernels(blob, dev)
+    for k in kernels:
+        if k["name"] == "rice_group_step":
+            k.update(ms_step_wide=wide["k9"]["step_ms"], plain_ms_wide=wide["k9"]["plain_ms"],
+                     bound_ms_wide=wide["k9"]["bound"]["bound_ms"],
+                     ms_chunk_wide=wide["k9"]["chunk_ms"],
+                     bound_ms_chunk_wide=wide["k9"]["chunk_bound"]["bound_ms"])
+            k["max_abs_err"] = max(k["max_abs_err"], wide["k9"]["err"])
+        elif k["name"] == "restore":
+            k["max_abs_err"] = max(k["max_abs_err"], wide["restore"].pop("max_abs_err_wide"))
+            k.update(wide["restore"])
 
     for k in kernels:
         k["launches"] = TOTAL_LAUNCHES.get(k["name"], 0)

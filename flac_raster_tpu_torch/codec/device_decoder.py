@@ -7,7 +7,9 @@ frame's CRC-16 over the compressed bytes (native C) and computes each
 frame's header length; the body is byteswapped to big-endian words on the
 host and uploaded once, from pinned memory.  Per chunk of frames the card
 gathers one window of words per frame (``ops/gather``) and decodes all
-subframes of all frames in one batched pass (``ops/device_decode``).  The
+subframes of all frames in one batched pass (``ops/device_decode``), with
+either Rice engine (``scan``).  Streams of 32 bits per sample take the
+wide lane of the same pass.  The
 error flags of all chunks are read back once, after every chunk is
 enqueued.  A partial tail frame decodes on the host, as in the JAX package.
 
@@ -39,7 +41,7 @@ from ..models.flac_format import (
     parse_vorbis_comments,
 )
 from ..ops.device_codec import MAX_DEVICE_BPS
-from ..ops.device_decode import decode_frames_device
+from ..ops.device_decode import SCAN_ENGINES, decode_frames_device
 from ..ops.gather import gather_windows
 from .decoder import DecodedStream, decode_flac, md5_of_samples
 from .device_encoder import resolve_device
@@ -137,6 +139,7 @@ def decode_flac_device(
     chunk_frames: "int | None" = None,
     sample_range: "tuple[int, int] | None" = None,
     device="cuda",
+    scan: str = "full",
 ) -> DecodedStream:
     """Decode a FLAC stream with the device pipeline.
 
@@ -146,13 +149,16 @@ def decode_flac_device(
     ``sample_range=(start, count)`` decodes only the frames that cover the
     range (random access through the layout index) and returns ``count``
     rows; it excludes ``verify_md5``, which covers the whole stream.
+    ``scan`` picks the Rice engine of ``ops/device_decode``: ``"full"``
+    (one chain-scan launch per chunk, K8) or ``"group"`` (a launch per
+    group of codes, K9); both give the same samples.
 
-    Raises ValueError on a CRC-16 or MD5 mismatch, and
-    NotImplementedError for streams of more than 26 bits per sample (the
-    wide lane, ROADMAP Queue 1 item 9).
+    Raises ValueError on a CRC-16 or MD5 mismatch.
     """
     if sample_range is not None and verify_md5:
         raise ValueError("verify_md5 requires a full decode")
+    if scan not in SCAN_ENGINES:
+        raise ValueError(f"unknown scan engine {scan!r}; one of {sorted(SCAN_ENGINES)}")
     dev = resolve_device(device)
     chunk = DEFAULT_CHUNK_FRAMES if chunk_frames is None else int(chunk_frames)
     if chunk < 1:
@@ -187,11 +193,6 @@ def decode_flac_device(
     if not eligible:
         return _host_route(buf, verify_crc, "no v2 layout index / unsupported shape",
                            sample_range, dev)
-    if bps > MAX_DEVICE_BPS:
-        raise NotImplementedError(
-            f"{bps}-bit streams need the 32-bps wide decode lane, which is not ported "
-            "yet (ROADMAP Queue 1 item 9)"
-        )
     full_frames = total // N
     tail_samples = total - full_frames * N
     if len(layout.sizes) != full_frames + (1 if tail_samples else 0):
@@ -240,7 +241,7 @@ def decode_flac_device(
             with record_function("frtt.decode.frames"):
                 samples, err = decode_frames_device(
                     windows, prep["bit_base"][f0:f1], prep["sf"][f0:f1], prep["fe"][f0:f1],
-                    C=C, bps=bps, N=N,
+                    C=C, bps=bps, N=N, scan=scan,
                 )
                 out[f0 * N : f1 * N] = samples.reshape(-1, C)
             errs.append(err)

@@ -25,7 +25,6 @@ from torch.profiler import record_function
 
 from .. import native
 from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_header
-from ..ops.device_codec import MAX_DEVICE_BPS
 from ..ops.device_emit import plan_and_emit, worst_case_words
 from ..ops.stereo import midside_ok
 from . import host_encoder
@@ -101,9 +100,13 @@ def encode_flac_device(
             uint16/uint8/int16/int8 rasters are copied as they are.
         device: ``"cuda"`` (default) or ``"cpu"`` for the plain versions.
 
+    Streams of 32 bits per sample take the wide lane
+    (``ops/wide_codec``); bits_per_sample is one of FLAC's widths here
+    (8, 12, 16, 20, 24, 32).
+
     Raises:
-        NotImplementedError: for what the port does not cover yet -- a
-            blocksize that is not a power of two, bps > 26.
+        NotImplementedError: for a blocksize that is not a power of two,
+            which the port does not cover yet.
         RuntimeError: when the sample stream broke the pack kernel's
             precondition (the chunk's words would be wrong).
     """
@@ -122,10 +125,6 @@ def encode_flac_device(
         raise NotImplementedError(
             f"blocksize {blocksize} needs the host encoder, which is not ported "
             "yet (ROADMAP Queue 1 item 12)"
-        )
-    if bits_per_sample > MAX_DEVICE_BPS:
-        raise NotImplementedError(
-            f"the wide {bits_per_sample}-bps lane is not ported yet (ROADMAP Queue 1 item 9)"
         )
     cfg = EncoderConfig.from_level(compression_level)
     sr_code = _SAMPLE_RATE_CODES.get(sample_rate, 0)

@@ -10,7 +10,7 @@
 // can load from its own row, so one thread owns one lane and walks its code
 // chain with three words of the window held in registers (a 96-bit bit
 // buffer refilled by 32-bit loads as the cursor crosses words); the unary
-// quotient is one __clzll of the 64 bits at the cursor.
+// quotient is one __clzll of the 64 bits at the cursor (rice_common.cuh).
 //
 // What bounds it: the serial dependency of each lane -- code j+1 starts
 // where code j ends.  A 4096-frame mono chunk is 4096 lanes, about one warp
@@ -19,63 +19,17 @@
 // SMs.  Stores are code-major, zs[j * B + lane], so a warp's 32 lanes write
 // one 128-byte line per code.
 //
-// Hostile input: every load is bound-checked against the lane's W words
-// (reads past them give 0), all arithmetic is on 32/64-bit unsigned values
-// with shifts kept below the type's width, and a cursor that ends past the
-// window sets err.  Semantics on err lanes follow XLA's (a shift by 32 or
-// more gives 0), so the plain version (ops/rice_scan.py) agrees bit for bit
-// on any input, err lanes included.
+// Hostile input: loads are bound-checked (rice_common.cuh), and a cursor
+// that ends past the window sets err.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "rice_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 32;
-
-// top nbits of a 32-bit value: 0 for nbits == 0, clamped to 31 bits above
-__device__ __forceinline__ uint32_t take_bits(uint32_t v, int nbits) {
-  if (nbits <= 0) return 0;
-  const int nb = nbits < 31 ? nbits : 31;
-  return (v >> 1) >> (31 - nb);
-}
-
-struct Window {
-  const uint32_t* row;
-  int w;
-  int wi;  // word index of w0
-  uint32_t w0, w1, w2;
-
-  __device__ __forceinline__ uint32_t load(int i) const {
-    return (i >= 0 && i < w) ? row[i] : 0u;
-  }
-  __device__ __forceinline__ void init(int pos) {
-    wi = pos >> 5;
-    w0 = load(wi);
-    w1 = load(wi + 1);
-    w2 = load(wi + 2);
-  }
-  // move the three-word buffer to the word holding pos (pos never decreases)
-  __device__ __forceinline__ void advance(int pos) {
-    const int d = (pos >> 5) - wi;
-    if (d == 0) return;
-    if (d == 1) {
-      w0 = w1; w1 = w2; w2 = load(wi + 3);
-    } else if (d == 2) {
-      w0 = w2; w1 = load(wi + 3); w2 = load(wi + 4);
-    } else {
-      init(pos);
-      return;
-    }
-    wi += d;
-  }
-  // the 64 bits at pos (pos lies in word wi)
-  __device__ __forceinline__ uint64_t bits64(int pos) const {
-    const int s = pos & 31;
-    const uint64_t hi = ((static_cast<uint64_t>(w0) << 32) | w1) << s;
-    return hi | ((static_cast<uint64_t>(w2) << s) >> 32);
-  }
-};
 
 __global__ void __launch_bounds__(THREADS)
 rice_scan_kernel(const uint32_t* __restrict__ words, int64_t n_lanes, int w,
@@ -96,39 +50,14 @@ rice_scan_kernel(const uint32_t* __restrict__ words, int64_t n_lanes, int w,
   }
   const int ord = order[lane];
   const int nc = n_codes[lane];
-  // 4 + the 2-bit method field; clamped so k stays below 128 on any input
-  const int pbt = min(max(pbits[lane], 0), 7);
+  const int pbt = frtt_rice::clamp_pbits(pbits[lane]);
   const int mask = psm[lane];
-  const uint32_t escape = (1u << pbt) - 1u;
-  Window win{words + lane * static_cast<int64_t>(w), w, 0, 0, 0, 0};
+  frtt_rice::Window win{words + lane * static_cast<int64_t>(w), w, 0, 0, 0, 0};
   win.init(pos);
   int k = 0;
   for (int j = 0; j < n; ++j) {
-    if (j >= nc) {
-      zs[j * n_lanes + lane] = 0;
-      continue;
-    }
-    win.advance(pos);
-    uint64_t hi = win.bits64(pos);
-    int pb = 0;
-    if (j == 0 || ((ord + j) & mask) == 0) {
-      const uint32_t k_new = take_bits(static_cast<uint32_t>(hi >> 32), pbt);
-      err |= k_new == escape;
-      k = static_cast<int>(k_new);
-      pb = pbt;
-      pos += pb;
-      win.advance(pos);
-      hi = win.bits64(pos);
-    }
-    int q = __clzll(static_cast<long long>(hi));  // 64 when hi == 0
-    err |= q + 1 + k > 32;
-    q = q < 31 ? q : 31;
-    // the 32 bits after the terminator (q + 1 <= 32)
-    const uint32_t after = static_cast<uint32_t>((hi << (q + 1)) >> 32);
-    const uint32_t rem = take_bits(after, k);
-    const uint32_t z = (k >= 32 ? 0u : (static_cast<uint32_t>(q) << k)) | rem;
-    zs[j * n_lanes + lane] = z;
-    pos += q + 1 + k;
+    zs[j * n_lanes + lane] =
+        j < nc ? frtt_rice::decode_code(win, pos, k, err, j, ord, mask, pbt) : 0u;
   }
   rend[lane] = pos;
   err_out[lane] = err || pos > 32 * w;

@@ -1,7 +1,8 @@
 """Plain bit readers of the device decoder, on int64 tensors.
 
 The port of ``flac_raster_tpu/ops/device_decode.py:100-161`` (``_read32``,
-``_take_bits``, ``_sext``) and ``pallas_rice_scan2._clz32``.  uint32 words
+``_take_bits``, ``_sext``), its wide-lane sample read (``:273-283``) and
+``pallas_rice_scan2._clz32``.  uint32 words
 are carried as int64 values in [0, 2^32); every shift below is a logical
 shift of such a value, and results are masked back to 32 bits where a left
 shift could carry past them.
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["M32", "word_at", "read32", "take_bits", "sext", "clz32", "wrap32"]
+__all__ = ["M32", "word_at", "read32", "take_bits", "sext", "read_sample", "clz32", "wrap32"]
 
 M32 = 0xFFFFFFFF
 
@@ -60,6 +61,16 @@ def sext(v: torch.Tensor, nbits) -> torch.Tensor:
     sign = 1 << (nbits - 1) if isinstance(nbits, int) else torch.ones_like(v) << (nbits - 1)
     vv = v & ((sign << 1) - 1)
     return (vv ^ sign) - sign
+
+
+def read_sample(words: torch.Tensor, pos: torch.Tensor, eb, *, wide: bool) -> torch.Tensor:
+    """Signed ``eb``-bit samples (MSB first) at ``pos`` (int64 values).
+
+    ``wide``: the 32-bps lane, where ``eb`` is 32 on every lane and the
+    32-bit read is the sample itself, viewed as int32 -- ``take_bits`` keeps
+    at most 31 bits and ``sext`` takes 1..31, so they must not read it."""
+    v = read32(words, pos)
+    return wrap32(v) if wide else sext(take_bits(v, eb), eb)
 
 
 def clz32(x: torch.Tensor) -> torch.Tensor:

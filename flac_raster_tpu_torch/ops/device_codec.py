@@ -135,19 +135,30 @@ def _rice_search(z: torch.Tensor, order: torch.Tensor, blocksize: int, max_po: i
     vmask = (((zmax[:, None, :] >> ks) + 1 + ks) & 0xFFFFFFFF) <= MAX_RICE_TOKEN_BITS
     cost = torch.where(vmask, cost, _BIG)
 
+    return _best_partitions(cost, max_po, KMAX)
+
+
+def _best_partitions(cost: torch.Tensor, max_po: int, kmax: int):
+    """The pick over a (B, kmax + 1, 2^max_po) table of exact per-partition
+    costs (invalid entries exactly ``_BIG``): for every partition order up
+    the merge tree and both parameter methods (4 bits, k <= 14; 5 bits,
+    k <= kmax), the first cheapest k per partition; then the first
+    cheapest (order, method).  Returns method (B,), po (B,), ks (B, 64),
+    payload_bits (B,) int64 and valid (B,) bool."""
+    B = cost.shape[0]
     totals, ks_sel = [], []
     lvl_cost = cost
     po = max_po
     while True:
         nparts = 1 << po
-        for pbits, kcap in ((4, 14), (5, KMAX)):
+        for pbits, kcap in ((4, 14), (5, kmax)):
             c = lvl_cost[:, : kcap + 1, :]
             best_k = torch.argmin(c, dim=1)                     # first minimum
             best_c = torch.gather(c, 1, best_k[:, None, :])[:, 0, :]
             total = best_c.sum(dim=1) + pbits * nparts
             bad = (best_c >= _BIG).any(dim=1)
             totals.append(torch.where(bad, _BIG, total))
-            kpad = torch.zeros((B, PART_SLOTS), dtype=torch.int64, device=dev)
+            kpad = torch.zeros((B, PART_SLOTS), dtype=torch.int64, device=cost.device)
             kpad[:, :nparts] = best_k
             ks_sel.append(kpad)
         if po == 0:
@@ -159,7 +170,7 @@ def _rice_search(z: torch.Tensor, order: torch.Tensor, blocksize: int, max_po: i
     choice = torch.argmin(tot, dim=1)
     best_total = torch.gather(tot, 1, choice[:, None])[:, 0]
     ks_all = torch.stack(ks_sel, dim=1)                       # (B, n_opts, 64)
-    ks_best = ks_all[torch.arange(B, device=dev), choice]
+    ks_best = ks_all[torch.arange(B, device=cost.device), choice]
     method = choice % 2
     po_best = max_po - choice // 2
     return method, po_best, ks_best, best_total, best_total < _BIG
@@ -327,13 +338,8 @@ def plan_from_lpc(
     B, N = x.shape
     if N != blocksize:
         raise ValueError(f"blocks are {N} wide, blocksize is {blocksize}")
-    dev = x.device
-    idx = torch.arange(N, device=dev)
     bps_e = _bps_vector(x, bps, bps_arr)
     precision = PRECISION
-
-    is_const = torch.all(x == x[:, :1], dim=1)
-    verbatim_bits = 8 + N * bps_e
 
     fixed_rs, zall, oall = _candidates(x, lpc)
     method_a, po_a, ks_a, payload_a, valid_a = _rice_search(zall, oall, N, max_po)
@@ -356,24 +362,51 @@ def plan_from_lpc(
                 _cand(ks_a, 5 + j), bits]
 
     if lpc:
-        # one candidate per apodization window (levels 7-8 have several):
-        # a later window replaces the kept one only when strictly cheaper
-        best_lpc = lpc_candidate(0)
-        for j in range(1, len(lpc)):
-            cand = lpc_candidate(j)
-            pick = cand[-1] < best_lpc[-1]
-            best_lpc = [torch.where(pick if a.dim() == 1 else pick[:, None], a, b)
-                        for a, b in zip(cand, best_lpc)]
-        order_l, qc, shift, r_lpc, method_l, po_l, ks_l, lpc_bits = best_lpc
+        best_lpc = _pick_window([lpc_candidate(j) for j in range(len(lpc))])
     else:
-        order_l = torch.zeros(B, dtype=torch.int64, device=dev)
-        qc = torch.zeros((B, max(max_lpc_order, 1)), dtype=torch.int32, device=dev)
-        shift = torch.zeros(B, dtype=torch.int32, device=dev)
-        r_lpc = torch.zeros_like(x)
-        method_l = po_l = torch.zeros(B, dtype=torch.int64, device=dev)
-        ks_l = torch.zeros((B, PART_SLOTS), dtype=torch.int64, device=dev)
-        lpc_bits = torch.full((B,), _BIG, dtype=torch.int64, device=dev)
+        best_lpc = _no_lpc(x, max_lpc_order)
+    return _assemble_plan(x, bps_e, cand_bits, cand_plan, best_lpc)
 
+
+def _pick_window(cands: list) -> list:
+    """One LPC candidate per apodization window (levels 7-8 have several),
+    each ``[order, qc, shift, r_lpc, method, po, ks, bits]``: a later window
+    replaces the kept one only when strictly cheaper, as the JAX planners
+    pick."""
+    best = cands[0]
+    for cand in cands[1:]:
+        pick = cand[-1] < best[-1]
+        best = [torch.where(pick if a.dim() == 1 else pick[:, None], a, b)
+                for a, b in zip(cand, best)]
+    return best
+
+
+def _no_lpc(x: torch.Tensor, max_lpc_order: int) -> list:
+    """The LPC candidate of a planner without LPC: never chosen."""
+    B, dev = x.shape[0], x.device
+    zeros = torch.zeros(B, dtype=torch.int64, device=dev)
+    return [zeros, torch.zeros((B, max(max_lpc_order, 1)), dtype=torch.int32, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev), torch.zeros_like(x), zeros, zeros,
+            torch.zeros((B, PART_SLOTS), dtype=torch.int64, device=dev),
+            torch.full((B,), _BIG, dtype=torch.int64, device=dev)]
+
+
+def _assemble_plan(x, bps_e, cand_bits: list, cand_plan: list, best_lpc: list) -> dict:
+    """The subframe choice over constant / fixed 0-4 / LPC / verbatim by
+    exact bits (the first minimum, in that order) and the plan dict, as
+    the JAX planners assemble it.
+
+    Args:
+        x: (B, N) int32 blocks; bps_e (B,) their bit depths.
+        cand_bits: five (B,) bit counts of the fixed orders (``_BIG`` where
+            invalid); cand_plan: their (method, po, ks, residual).
+        best_lpc: the kept LPC candidate (:func:`_pick_window`).
+    """
+    B, N = x.shape
+    dev = x.device
+    order_l, qc, shift, r_lpc, method_l, po_l, ks_l, lpc_bits = best_lpc
+    is_const = torch.all(x == x[:, :1], dim=1)
+    verbatim_bits = 8 + N * bps_e
     all_bits = torch.stack(cand_bits + [lpc_bits, verbatim_bits], dim=1)  # (B, 7)
     best = torch.argmin(all_bits, dim=1)
     best_bits = torch.gather(all_bits, 1, best[:, None])[:, 0]
@@ -399,6 +432,7 @@ def plan_from_lpc(
         ks = torch.where(pick[:, None], k, ks)
         resid = torch.where(pick[:, None], r, resid)
 
+    idx = torch.arange(N, device=dev)
     resid = torch.where(idx[None, :] >= order_out[:, None], resid, 0)
     bits_out = torch.where(
         is_const, 8 + bps_e, torch.where(is_verb, verbatim_bits, best_bits)
@@ -413,7 +447,7 @@ def plan_from_lpc(
         method=torch.where(has_resid, method, 0).to(i32),
         po=torch.where(has_resid, po, 0).to(i32),
         ks=torch.where(has_resid[:, None], ks, 0).to(i32),
-        precision=torch.full((B,), precision, dtype=i32, device=dev),
+        precision=torch.full((B,), PRECISION, dtype=i32, device=dev),
         shift=shift.to(i32),
         qcoeffs=qc_pad,
         residual=resid.to(i32),

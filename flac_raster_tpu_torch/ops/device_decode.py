@@ -11,8 +11,12 @@ frames then parse in one batched pass of C*B lanes:
     parameters are plain PyTorch reads (``ops/bits``) on every lane at
     once -- verbatim lanes are read unconditionally, so that no
     ``any()`` synchronises the host per chunk;
-  * the Rice chain runs in the kernel ``ops/rice_scan`` and the residual
-    placement and predictor restore in ``ops/restore``;
+  * the Rice chain runs in one of two engines -- ``scan="full"`` (the
+    default), the whole chain in one kernel launch (``ops/rice_scan``,
+    K8), or ``scan="group"``, a loop of group steps (``ops/rice_group``,
+    K9), the port's counterparts of the JAX package's ``scan_impl=
+    "pallas2"`` and ``"pallas"`` -- and the residual placement and
+    predictor restore in ``ops/restore``;
   * the channel decorrelation (left/right/mid-side) is undone in plain
     PyTorch.
 
@@ -21,9 +25,16 @@ bits, an escape partition, a Rice code over the TOK32 cap, a subframe chain
 that does not meet the layout's offsets or the frame's end) sets the
 frame's err flag; the caller then decodes the stream on the host.
 
+The 32-bps wide lane (``bps > MAX_DEVICE_BPS``; the JAX package's
+``device_decode.py:162-283, 594-620``): every channel carries 32 bits, so sample
+reads take the whole 32-bit word (``bits.read_sample``) and the restore
+sums in int64; the Rice scan needs no widening, since the TOK32 cap keeps
+every codable zigzag below 2^31.  A 2-channel wide frame must code its
+channels independently (a 33-bit side channel cannot occur under TOK32);
+any other assignment sets err.
+
 Not ported: the TPU's gather economies (row mode, element mode, the head
-window, ``nrow``, ``scan_impl`` and its env knobs) and the 32-bps wide
-lane, which raises ``NotImplementedError`` (ROADMAP Queue 1 item 9).
+window, ``nrow``) and the environment knobs that select an engine.
 """
 
 from __future__ import annotations
@@ -32,12 +43,16 @@ import functools
 
 import torch
 
-from .bits import M32, read32, sext, take_bits, wrap32
+from .bits import M32, read32, read_sample, sext, take_bits, wrap32
 from .device_codec import MAX_DEVICE_BPS
 from .restore import MAX_ORDER, restore
+from .rice_group import rice_scan_grouped
 from .rice_scan import rice_scan_full
 
-__all__ = ["decode_frames_device", "parse_subframe", "parse_header"]
+__all__ = ["decode_frames_device", "parse_subframe", "parse_header", "SCAN_ENGINES"]
+
+# the Rice chain engines: one launch per block, or one per group of codes
+SCAN_ENGINES = {"full": rice_scan_full, "group": rice_scan_grouped}
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,13 +63,14 @@ def _fixed_coefs(device: torch.device) -> torch.Tensor:
     return torch.tensor([t + [0] * (MAX_ORDER - len(t)) for t in taps], device=device)
 
 
-def parse_header(words, pos, eb, err, *, N: int) -> dict:
+def parse_header(words, pos, eb, err, *, N: int, wide: bool = False) -> dict:
     """Everything of a subframe before its Rice codes, on every lane.
 
     Args:
         words: (L, W) int64 uint32 window words, one row per lane.
         pos: (L,) int64 bit position of the subframe header.
-        eb: (L,) int64 bits per sample of the lane's channel.
+        eb: (L,) int64 bits per sample of the lane's channel (32 on every
+            lane when ``wide``).
         err: (L,) bool error flags in.
     Returns:
         a dict of (L,) / (L, 12) tensors: the Rice scan's inputs (``rstart``,
@@ -78,11 +94,10 @@ def parse_header(words, pos, eb, err, *, N: int) -> dict:
     order = order.clamp(max=MAX_ORDER)
     pos0 = pos + 8
 
-    const_val = sext(take_bits(read32(words, pos0), eb), eb)
+    const_val = read_sample(words, pos0, eb, wide=wide)
 
     iota_m = torch.arange(MAX_ORDER, device=dev)[None, :]
-    warm = sext(take_bits(read32(words, pos0[:, None] + iota_m * eb[:, None]), eb[:, None]),
-                eb[:, None])
+    warm = read_sample(words, pos0[:, None] + iota_m * eb[:, None], eb[:, None], wide=wide)
     warm = torch.where(iota_m < order[:, None], warm, 0)
     pos_w = pos0 + order * eb
 
@@ -115,25 +130,27 @@ def parse_header(words, pos, eb, err, *, N: int) -> dict:
     }
 
 
-def parse_subframe(windows, words, pos, eb, err, *, N: int):
+def parse_subframe(windows, words, pos, eb, err, *, N: int, wide: bool = False,
+                   scan: str = "full"):
     """Parse and decode one subframe on every lane.
 
     Args:
         windows: (L, W) int32 window words (the kernels' input).
         words: the same as int64 uint32 values (the plain reads' input).
-        pos, eb, err: as :func:`parse_header`.
+        pos, eb, err, wide: as :func:`parse_header`.
+        scan: the Rice chain engine, a key of :data:`SCAN_ENGINES`.
     Returns:
         (signal (L, N) int32, end bit position (L,) int64, err (L,) bool)
     """
-    h = parse_header(words, pos, eb, err, N=N)
-    zs, rend, err = rice_scan_full(
+    h = parse_header(words, pos, eb, err, N=N, wide=wide)
+    zs, rend, err = SCAN_ENGINES[scan](
         windows, h["rstart"], h["err"], h["is_rice"], h["order"], h["n_codes"],
         h["pbits"], h["psm"], N,
     )
-    sig_rice = restore(zs, h["order"], h["coefs"], h["shift"], h["warm"], N)
+    sig_rice = restore(zs, h["order"], h["coefs"], h["shift"], h["warm"], N, wide=wide)
     pos0, iota_n = h["pos0"], torch.arange(N, device=pos.device)
-    verb = sext(take_bits(read32(words, pos0[:, None] + iota_n[None, :] * eb[:, None]),
-                          eb[:, None]), eb[:, None])
+    verb = read_sample(words, pos0[:, None] + iota_n[None, :] * eb[:, None], eb[:, None],
+                       wide=wide)
     is_const, is_verb = h["is_const"][:, None], h["is_verb"][:, None]
     sig = torch.where(is_const, h["const_val"][:, None].to(torch.int32),
                       torch.where(is_verb, verb.to(torch.int32), sig_rice))
@@ -142,7 +159,8 @@ def parse_subframe(windows, words, pos, eb, err, *, N: int):
     return sig, end, err
 
 
-def decode_frames_device(windows, bit_base, sf_start, frame_end, *, C: int, bps: int, N: int):
+def decode_frames_device(windows, bit_base, sf_start, frame_end, *, C: int, bps: int, N: int,
+                         scan: str = "full"):
     """Decode a batch of full FLAC frames.
 
     Args:
@@ -154,16 +172,15 @@ def decode_frames_device(windows, bit_base, sf_start, frame_end, *, C: int, bps:
             layout block's subframe bit lengths.
         frame_end: (B,) -- bit_base + 8 * frame size.
         C / bps / N: channels, stream bit depth, blocksize (a power of two).
+        scan: the Rice chain engine, ``"full"`` (K8) or ``"group"`` (K9).
 
     Returns:
         samples (B, N, C) int32, err (B,) bool.  CRC-16 verification is the
         caller's (host, over the compressed bytes).
     """
-    if bps > MAX_DEVICE_BPS:
-        raise NotImplementedError(
-            f"{bps}-bit streams need the 32-bps wide decode lane, which is not "
-            "ported yet (ROADMAP Queue 1 item 9)"
-        )
+    if scan not in SCAN_ENGINES:
+        raise ValueError(f"unknown scan engine {scan!r}; one of {sorted(SCAN_ENGINES)}")
+    wide = bps > MAX_DEVICE_BPS
     if windows.dtype != torch.int32 or windows.dim() != 2:
         raise ValueError("windows must be a (B, W) int32 tensor")
     windows = windows.contiguous()
@@ -174,20 +191,21 @@ def decode_frames_device(windows, bit_base, sf_start, frame_end, *, C: int, bps:
 
     chan = (read32(words, bit_base) >> 4) & 0xF
     err = chan > 10
-    if C == 2:
+    if C == 2 and not wide:
         side0 = (chan == 9).long()                   # right/side
         side1 = ((chan == 8) | (chan == 10)).long()  # left/side, mid/side
         ch_bps = torch.stack([bps + side0, bps + side1])
         err = err | ((chan <= 7) & (chan != 1))
     else:
         ch_bps = torch.full((C, B), bps, dtype=torch.int64, device=windows.device)
-        err = err | (chan != C - 1)
+        err = err | (chan != C - 1)  # a wide stereo frame must be L/R (code 1)
 
     if C > 1:
         windows = windows.repeat(C, 1)
         words = words.repeat(C, 1)
     sig, end, err_l = parse_subframe(
-        windows, words, sf_start.t().reshape(C * B), ch_bps.reshape(C * B), err.repeat(C), N=N
+        windows, words, sf_start.t().reshape(C * B), ch_bps.reshape(C * B), err.repeat(C), N=N,
+        wide=wide, scan=scan,
     )
     sigs = sig.reshape(C, B, N)
     ends = end.reshape(C, B)

@@ -19,6 +19,9 @@ Two token streams go through the same kernel into the same buffer:
 For a 2-channel stream with mid-side search (``plan_and_emit(mid_side=
 True)``), the four variants L, R, mid and side are planned in one batch
 and each frame keeps the cheapest channel assignment (``ops/stereo``).
+Streams of 32 bits per sample plan through ``ops/wide_codec`` (the wide
+lane; no mid-side there), and their verbatim, warmup and constant tokens
+carry full 32-bit values.
 
 CRC-8/CRC-16 fields are left zero and patched on the host.  Offsets are
 int64 throughout; token values and lengths are int32 at the kernel boundary.
@@ -31,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from .bits import wrap32
 from .device_codec import (
     KIND_CONSTANT,
     KIND_FIXED,
@@ -43,6 +47,7 @@ from .device_codec import (
 )
 from .pack import pack_tokens
 from .stereo import CHAN_CODES, SLOT0_VARIANT, SLOT1_VARIANT
+from .wide_codec import plan_blocks_wide
 
 __all__ = [
     "plan_and_emit", "emit_plan", "emit_tokens", "normalize", "worst_case_words",
@@ -294,7 +299,8 @@ def emit_tokens(
             merged(frame_o, sub_o),
         ),
         "samples": (
-            tok_v.reshape(-1).to(torch.int32),
+            # 32-bit sample values >= 2^31 become their int32 bit patterns
+            wrap32(tok_v).reshape(-1).to(torch.int32),
             tok_l.reshape(-1).to(torch.int32),
             tok_o.reshape(-1),
         ),
@@ -391,15 +397,13 @@ def plan_and_emit(
             L, R, mid and side are planned in one batch and each frame
             keeps its cheapest assignment, as the JAX ``plan_and_emit``.
     Returns:
-        ``emit_plan``'s dict.
+        ``emit_plan``'s dict.  A bps above MAX_DEVICE_BPS (32: the wide
+        lane) plans through ``wide_codec.plan_blocks_wide``.
     """
     F, C, N = x.shape
-    if bps + mid_side > MAX_DEVICE_BPS:
-        raise NotImplementedError(
-            f"the wide {bps + mid_side}-bps lane is not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    if mid_side and C != 2:
-        raise ValueError(f"mid-side search needs 2 channels, not {C}")
+    if mid_side and (C != 2 or bps + 1 > MAX_DEVICE_BPS):
+        raise ValueError(f"mid-side search needs 2 channels of <= {MAX_DEVICE_BPS - 1} bits, "
+                         f"not {C} of {bps}")
     x = normalize(x, zero_point)
     plan_kw = dict(blocksize=blocksize, max_lpc_order=max_lpc_order,
                    max_partition_order=max_partition_order, use_lpc=use_lpc,
@@ -408,7 +412,8 @@ def plan_and_emit(
     if mid_side:
         plan, x, chan_code, ch_bps = _plan_mid_side(x, bps, **plan_kw)
     else:
-        plan = plan_blocks(x.reshape(F * C, N), bps=bps, **plan_kw)
+        planner = plan_blocks_wide if bps > MAX_DEVICE_BPS else plan_blocks
+        plan = planner(x.reshape(F * C, N), bps=bps, **plan_kw)
     return emit_plan(
         x, plan, frame0, n_words=n_words, chan_code=chan_code, ch_bps=ch_bps,
         blocksize=blocksize, bps=bps, sr_code=sr_code, bps_code=bps_code,

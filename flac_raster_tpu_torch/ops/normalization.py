@@ -1,9 +1,17 @@
-"""Raster dtype <-> PCM sample mapping: the lossless shift mode.
+"""Raster dtype <-> PCM sample mapping: the lossless modes.
 
-The port of ``flac_raster_tpu.ops.normalization`` keeps only what the shift
-lane needs: integer rasters of up to 16 bits map to PCM by subtracting a
-per-dtype zero point, which is exact.  Other modes (minmax, float bit
-folds, 32-bit integers) belong to later slices of the port and raise.
+The port of the lossless half of ``flac_raster_tpu.ops.normalization``
+(``normalization.py:49-52, 244-326``), numpy copies of its exact
+bijections:
+
+  * shift         -- integer rasters minus a per-dtype zero point: 8- and
+                     16-bit dtypes to 16-bit PCM, int32/uint32 to 32-bit;
+  * float32_bits  -- an order-preserving fold of the float bits to int32
+                     (NaN payloads, +-inf and -0.0 kept);
+  * float64_bits  -- the same fold on 64 bits, split into two 32-bit
+                     channels per band (hi, lo), each XOR 2^31.
+
+The minmax mode is not ported (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -16,13 +24,18 @@ import numpy as np
 __all__ = [
     "NormalizationParams",
     "calculate_audio_params",
+    "normalize_lossless",
     "denormalize_lossless",
     "MODE_MINMAX",
     "MODE_SHIFT",
+    "MODE_FLOAT32_BITS",
+    "MODE_FLOAT64_BITS",
 ]
 
 MODE_MINMAX = "minmax"
 MODE_SHIFT = "shift"
+MODE_FLOAT32_BITS = "float32_bits"
+MODE_FLOAT64_BITS = "float64_bits"
 
 # dtype -> (FLAC bits per sample, zero point); same table as the JAX package
 _SHIFT_SPECS = {
@@ -100,12 +113,66 @@ def calculate_audio_params(data: np.ndarray, dtype: np.dtype) -> Tuple[int, int]
     return sample_rate, bits_per_sample
 
 
-def denormalize_lossless(audio: np.ndarray, params: NormalizationParams) -> np.ndarray:
-    """Exact inverse of the shift mapping: PCM + zero point -> raster dtype."""
-    if params.mode != MODE_SHIFT:
-        raise NotImplementedError(
-            f"normalization mode {params.mode!r} is not ported yet "
-            "(ROADMAP Queue 1 item 6); only the shift mode is"
+def _float_bits_fold(u: np.ndarray, sign_shift: int) -> np.ndarray:
+    """Order-preserving involution on float bit patterns (uint32 or uint64):
+    a set sign bit flips every other bit.  Applying it twice is the
+    identity."""
+    sign = (u >> u.dtype.type(sign_shift)).astype(bool)
+    flip = np.array((1 << sign_shift) - 1, dtype=u.dtype)
+    return np.where(sign, u ^ flip, u)
+
+
+def normalize_lossless(data: np.ndarray) -> Tuple[np.ndarray, NormalizationParams]:
+    """Exact dtype -> PCM mapping of (n, bands) interleaved samples.
+
+    Returns int32 samples -- (n, 2 * bands) for float64, hi and lo of each
+    band side by side -- and the parameters that invert them.
+    """
+    dt = np.dtype(data.dtype)
+    stats_min = float(np.nanmin(data)) if data.size else 0.0
+    stats_max = float(np.nanmax(data)) if data.size else 0.0
+    if dt in _SHIFT_SPECS:
+        bps, zero = _SHIFT_SPECS[dt]
+        audio = (data.astype(np.int64) - zero).astype(np.int32)
+        return audio, NormalizationParams(
+            data_min=stats_min, data_max=stats_max, original_dtype=str(dt),
+            bits_per_sample=bps, scale_factor=1, mode=MODE_SHIFT, zero_point=zero,
         )
+    if dt == np.float32:
+        audio = _float_bits_fold(data.view(np.uint32), 31).view(np.int32)
+        return audio, NormalizationParams(
+            data_min=stats_min, data_max=stats_max, original_dtype="float32",
+            bits_per_sample=32, scale_factor=1, mode=MODE_FLOAT32_BITS,
+        )
+    if dt == np.float64:
+        folded = _float_bits_fold(data.view(np.uint64), 63)
+        hi = ((folded >> np.uint64(32)).astype(np.uint32) ^ np.uint32(1 << 31)).view(np.int32)
+        lo = (folded.astype(np.uint32) ^ np.uint32(1 << 31)).view(np.int32)
+        audio = np.stack([hi, lo], axis=-1)
+        if data.ndim > 1:
+            audio = audio.reshape(*data.shape[:-1], -1)
+        return audio, NormalizationParams(
+            data_min=stats_min, data_max=stats_max, original_dtype="float64",
+            bits_per_sample=32, scale_factor=1, mode=MODE_FLOAT64_BITS,
+            channels_per_band=2,
+        )
+    raise ValueError(f"unsupported dtype for lossless normalization: {dt}")
+
+
+def denormalize_lossless(audio: np.ndarray, params: NormalizationParams) -> np.ndarray:
+    """Exact inverse of :func:`normalize_lossless` on (n, channels) PCM."""
     dt = np.dtype(params.original_dtype)
-    return (audio.astype(np.int64) + params.zero_point).astype(dt)
+    if params.mode == MODE_SHIFT:
+        return (audio.astype(np.int64) + params.zero_point).astype(dt)
+    if params.mode == MODE_FLOAT32_BITS:
+        return _float_bits_fold(audio.astype(np.int32).view(np.uint32), 31).view(np.float32)
+    if params.mode == MODE_FLOAT64_BITS:
+        pairs = audio.reshape(*audio.shape[:-1], -1, 2)
+        top = np.uint32(1 << 31)
+        hi = (pairs[..., 0].astype(np.int32).view(np.uint32) ^ top).astype(np.uint64)
+        lo = (pairs[..., 1].astype(np.int32).view(np.uint32) ^ top).astype(np.uint64)
+        return _float_bits_fold((hi << np.uint64(32)) | lo, 63).view(np.float64)
+    raise NotImplementedError(
+        f"normalization mode {params.mode!r} is not ported yet (ROADMAP Queue 1 item 6, "
+        "the minmax mode)"
+    )

@@ -10,6 +10,12 @@ scan's zigzag codes (code j belongs to sample ``order + j``):
 
 in int32 arithmetic with two's-complement wraparound, as XLA's int32; a
 shift outside [0, 31] gives the sign fill, as XLA's arithmetic shift does.
+
+``wide=True`` is the 32-bps lane (the JAX ``device_decode.py:594-620``): the
+predictor sum reaches ~2^49 (16-bit taps times full int32 samples), so it
+is taken in int64 (modulo 2^64, exact for any stream a decoder accepts),
+shifted arithmetically, and its low 32 bits are added to the residual with
+int32 wraparound -- the value the JAX package's (hi, lo) limb pairs give.
 Output ``sig_rice`` (B, N) int32, a view of a sample-major (N, B) buffer.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
@@ -41,11 +47,12 @@ def _check(zs, order, coefs, shift, warm, N):
             raise ValueError(f"{name} lies on another device than zs")
 
 
-def restore_reference(zs, order, coefs, shift, warm, N: int) -> torch.Tensor:
+def restore_reference(zs, order, coefs, shift, warm, N: int, *, wide: bool = False) -> torch.Tensor:
     """Plain PyTorch version: the placement as one gather, then a loop over
     the N samples on (B,) int64 lanes, wrapped to int32 once per sample
-    (wrapping the sum once equals wrapping each operation: both are
-    arithmetic modulo 2^32)."""
+    (narrow: wrapping the sum once equals wrapping each operation, both are
+    arithmetic modulo 2^32; wide: the int64 sum, then the low 32 bits of
+    the shifted prediction)."""
     _check(zs, order, coefs, shift, warm, N)
     B = zs.shape[0]
     dev = zs.device
@@ -61,7 +68,10 @@ def restore_reference(zs, order, coefs, shift, warm, N: int) -> torch.Tensor:
     sh = sh.clamp(0, 31)
     warm = warm.long()
     for i in range(N):
-        acc = wrap32(((x[:, i : i + MAX_ORDER] * crev) & M32).sum(1))
+        if wide:
+            acc = (x[:, i : i + MAX_ORDER] * crev).sum(1)
+        else:
+            acc = wrap32(((x[:, i : i + MAX_ORDER] * crev) & M32).sum(1))
         pred = torch.where(sh_ok, acc >> sh, torch.where(acc < 0, -1, 0))
         xi = wrap32(res[:, i] + pred)
         if i < MAX_ORDER:
@@ -70,10 +80,10 @@ def restore_reference(zs, order, coefs, shift, warm, N: int) -> torch.Tensor:
     return x[:, MAX_ORDER:].to(torch.int32)
 
 
-def restore(zs, order, coefs, shift, warm, N: int) -> torch.Tensor:
+def restore(zs, order, coefs, shift, warm, N: int, *, wide: bool = False) -> torch.Tensor:
     """sig_rice (B, N) int32; see the module."""
     if zs.device.type == "cpu":
-        return restore_reference(zs, order, coefs, shift, warm, N)
+        return restore_reference(zs, order, coefs, shift, warm, N, wide=wide)
     if zs.device.type != "cuda":
         raise ValueError(f"unsupported device {zs.device}")
     _check(zs, order, coefs, shift, warm, N)
@@ -87,7 +97,7 @@ def restore(zs, order, coefs, shift, warm, N: int) -> torch.Tensor:
     stream = torch.cuda.current_stream(zs.device).cuda_stream
     rc = _build.kernels().frtt_restore(
         zs_cm.data_ptr(), B, N, order.data_ptr(), coefs.data_ptr(), shift.data_ptr(),
-        warm.data_ptr(), out.data_ptr(), stream,
+        warm.data_ptr(), int(wide), out.data_ptr(), stream,
     )
     _build.check(rc, "restore")
     global LAUNCHES

@@ -32,7 +32,8 @@ import torch
 from .. import _build
 from .bits import M32, clz32, read32, take_bits, word_at, wrap32
 
-__all__ = ["rice_scan_full", "rice_scan_full_reference", "LAUNCHES"]
+__all__ = ["rice_scan_full", "rice_scan_full_reference", "decode_code", "plain_lanes",
+           "LAUNCHES"]
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
@@ -66,40 +67,52 @@ def _read64(w: torch.Tensor, pos: torch.Tensor):
     return a, b
 
 
+def plain_lanes(words, order, n_codes, pbits, psm) -> tuple:
+    """The plain versions' int64 working copies: (words as uint32 values,
+    order, n_codes, pbits clamped to [0, 7] as the kernels clamp it, psm)."""
+    return (words.long() & M32, order.long(), n_codes.long(), pbits.long().clamp(0, 7),
+            psm.long())
+
+
+def decode_code(w, j: int, cpos, k, err, is_rice, order, n_codes, pbits, psm):
+    """Code j of every lane from cursor ``cpos`` (int64 lanes, the inputs of
+    :func:`plain_lanes`), written from the XLA ``rice_step``: a partition
+    parameter first where j == 0 or ``(order + j) & psm == 0``; err for an
+    escape parameter or q + 1 + k > 32; 0 and no advance on lanes that are
+    not Rice or past ``n_codes``.  Returns (z, cpos, k, err) after the code."""
+    active = is_rice & (j < n_codes)
+    boundary = active & ((j == 0) | (((order + j) & psm) == 0))
+    k_new = take_bits(read32(w, cpos), pbits)
+    err = err | (boundary & (k_new == (1 << pbits) - 1))
+    k = torch.where(boundary, k_new, k)
+    pb = torch.where(boundary, pbits, 0)
+    a, b = _read64(w, cpos + pb)
+    q = torch.where(a == 0, 32 + clz32(b), clz32(a))
+    err = err | (active & (q + 1 + k > 32))
+    q = q.clamp(max=31)
+    # remainder: the k bits after the terminator, inside (a, b)
+    s2 = q + 1
+    lo = s2.clamp(max=31)
+    w1 = ((a << lo) & M32) | ((b >> 1) >> (31 - lo))
+    rem = take_bits(torch.where(s2 <= 31, w1, b), k)
+    # a uint32 shift by 32 or more gives 0, as in XLA
+    z = torch.where(k >= 32, 0, (q << k.clamp(max=31)) & M32) | rem
+    cpos = cpos + torch.where(active, pb + q + 1 + k, 0)
+    return torch.where(active, z, 0), cpos, k, err
+
+
 def rice_scan_full_reference(words, rstart, err, is_rice, order, n_codes, pbits, psm, N: int):
-    """Plain PyTorch version: one step per code over all lanes, in int64,
-    written from the XLA ``rice_step``."""
+    """Plain PyTorch version: one :func:`decode_code` per code over all
+    lanes, in int64."""
     _check(words, rstart, err, is_rice, order, n_codes, pbits, psm, N)
     B, W = words.shape
-    w = words.long() & M32
+    w, *lanes = plain_lanes(words, order, n_codes, pbits, psm)
     cpos = rstart.long()
     k = torch.zeros_like(cpos)
-    err = err.clone()
-    order, n_codes, psm = order.long(), n_codes.long(), psm.long()
-    pbits = pbits.long().clamp(0, 7)
-    escape = (1 << pbits) - 1
     zs = torch.empty((N, B), dtype=torch.int64, device=words.device)
     for j in range(N):
-        active = is_rice & (j < n_codes)
-        boundary = active & ((j == 0) | (((order + j) & psm) == 0))
-        k_new = take_bits(read32(w, cpos), pbits)
-        err |= boundary & (k_new == escape)
-        k = torch.where(boundary, k_new, k)
-        pb = torch.where(boundary, pbits, 0)
-        a, b = _read64(w, cpos + pb)
-        q = torch.where(a == 0, 32 + clz32(b), clz32(a))
-        err |= active & (q + 1 + k > 32)
-        q = q.clamp(max=31)
-        # remainder: the k bits after the terminator, inside (a, b)
-        s2 = q + 1
-        lo = s2.clamp(max=31)
-        w1 = ((a << lo) & M32) | ((b >> 1) >> (31 - lo))
-        rem = take_bits(torch.where(s2 <= 31, w1, b), k)
-        # a uint32 shift by 32 or more gives 0, as in XLA
-        z = torch.where(k >= 32, 0, (q << k.clamp(max=31)) & M32) | rem
-        zs[j] = torch.where(active, z, 0)
-        cpos = cpos + torch.where(active, pb + q + 1 + k, 0)
-    err |= is_rice & (cpos > 32 * W)
+        zs[j], cpos, k, err = decode_code(w, j, cpos, k, err, is_rice, *lanes)
+    err = err | (is_rice & (cpos > 32 * W))
     return wrap32(zs).to(torch.int32).t(), cpos.to(torch.int32), err
 
 

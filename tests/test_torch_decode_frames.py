@@ -174,7 +174,8 @@ def test_frames_err_flags_match_jax_lane_for_lane():
     assert err.tolist() == [False, True, True, False, True, True]
 
 
-def test_wide_lane_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
+def test_unknown_scan_engine_raises():
+    with pytest.raises(ValueError, match="scan engine"):
         decode_frames_device(torch.zeros((1, 8), dtype=torch.int32), torch.zeros(1),
-                             torch.zeros((1, 1)), torch.zeros(1), C=1, bps=32, N=64)
+                             torch.zeros((1, 1)), torch.zeros(1), C=1, bps=32, N=64,
+                             scan="pallas")

@@ -92,7 +92,7 @@ def _ramp(n, channels):
     "n,kw,exc,match",
     [
         (3 * 1000, dict(blocksize=1000), NotImplementedError, "item 12"),
-        (N, dict(bits_per_sample=32), NotImplementedError, "item 9"),
+        (N, dict(bits_per_sample=28), ValueError, "unsupported bits_per_sample"),
         (N, dict(bits_per_sample=8), ValueError, "range"),
     ],
 )

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_scan
+from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_group, rice_scan
 
 pytestmark = pytest.mark.gpu
 
@@ -329,3 +329,112 @@ def test_device_decode_on_card_matches_cpu(cuda):
     cpu = decode_flac_device(blob, verify_md5=True, chunk_frames=5, device="cpu")
     assert gpu.route == cpu.route == "device"
     assert torch.equal(gpu.samples.cpu(), cpu.samples)
+
+
+def _stream_lanes(cuda, bps):
+    """The Rice scan inputs of every subframe lane of a valid level-5 stream
+    (mono, 12 frames of 4096; 16 or 32 bits per sample), on the card."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.codec.device_decoder import prepare_frames
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
+    from flac_raster_tpu_torch.ops.bits import M32
+    from flac_raster_tpu_torch.ops.device_decode import parse_header
+
+    rng = np.random.default_rng(bps)
+    t = np.arange(12 * 4096)
+    amp = (1 << (bps - 2)) - (1 << (bps - 5))
+    x = (amp * np.sin(t / 700.0) + rng.normal(0, 2.0 ** (bps - 12), t.size)).astype(np.int64)
+    blob = encode_flac_device(x, 44100, bps, compression_level=5, device="cpu")
+    si, blocks, start = parse_flac_metadata(blob)
+    prep = prepare_frames(blob, start, parse_layout_block(blocks), si, 0, 12, cuda)
+    windows = gather.gather_windows(prep["body"], prep["word0"], prep["W"])
+    h = parse_header(windows.long() & M32, prep["sf"][:, 0], torch.full((12,), bps, device=cuda),
+                     torch.zeros(12, dtype=torch.bool, device=cuda), N=4096, wide=bps == 32)
+    assert h["is_rice"].all()
+    return windows, [h[k] for k in ("rstart", "err", "is_rice", "order", "n_codes", "pbits",
+                                    "psm")], h
+
+
+@pytest.mark.parametrize("lanes", ["valid16", "valid32", "random"])
+def test_rice_group_kernel_matches_plain(cuda, lanes):
+    """K9: one step against its plain version (the carries and the group's
+    rows), and the whole grouped scan against the chain scan kernel K8, on
+    valid windows of a 16- and a 32-bps stream and on random ones
+    (hostile headers: escape and 6-7-bit parameters, cursors past the
+    window)."""
+    if lanes == "random":
+        words, *args = _scan_inputs(np.random.default_rng(11), 300, 40, 256, cuda)
+        n = 256
+    else:
+        words, args, _ = _stream_lanes(cuda, int(lanes[5:]))
+        n = 4096
+    rstart, err, rest = args[0], args[1], args[2:]
+    B = words.shape[0]
+    j0 = 2 * rice_group.GROUP
+    carries = [rstart.clone(), torch.zeros_like(rstart), err.clone()]
+    rice_group.rice_group_step_reference(words, *carries, *rest,
+                                         torch.zeros((n, B), dtype=torch.int32, device=cuda), 0,
+                                         j0)
+    mine = [c.clone() for c in carries]
+    zs = torch.zeros((n, B), dtype=torch.int32, device=cuda)
+    zs_p = zs.clone()
+    before = rice_group.LAUNCHES
+    rice_group.rice_group_step(words, *mine, *rest, zs, j0)
+    assert rice_group.LAUNCHES == before + 1
+    rice_group.rice_group_step_reference(words, *carries, *rest, zs_p, j0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(mine, carries))
+    assert torch.equal(zs, zs_p)
+    full = rice_scan.rice_scan_full(words, *args, n)
+    before = rice_group.LAUNCHES
+    grouped = rice_group.rice_scan_grouped(words, *args, n)
+    assert rice_group.LAUNCHES == before + -(-n // rice_group.GROUP)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grouped, full))
+    assert bool(full[2].any()) == (lanes == "random")
+
+
+def test_restore_kernel_wide_matches_plain(cuda):
+    """The wide restore: full int32 warmups and residuals, 16-bit taps (the
+    widest a decoder accepts), shifts inside and outside [0, 31]."""
+    rng = np.random.default_rng(12)
+    B, n = 200, 512
+    zs = torch.from_numpy(_u32(rng, (B, n))).to(cuda)
+    order = torch.from_numpy(rng.integers(0, 13, B).astype(np.int32)).to(cuda)
+    coefs = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, (B, 12)).astype(np.int32)).to(cuda)
+    shift = torch.from_numpy(rng.integers(-2, 34, B).astype(np.int32)).to(cuda)
+    warm = torch.from_numpy(_u32(rng, (B, 12))).to(cuda)
+    before = restore.LAUNCHES
+    out = restore.restore(zs, order, coefs, shift, warm, n, wide=True)
+    assert restore.LAUNCHES == before + 1
+    ref = restore.restore_reference(zs, order, coefs, shift, warm, n, wide=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, restore.restore_reference(zs, order, coefs, shift, warm, n))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_wide_raster_on_card_matches_cpu(cuda, dtype):
+    """A float raster with a tail frame (NaN, +-inf, -0.0; float64 as two
+    channels per band) through the wide lane: identical bytes on the card
+    and on the CPU at level 2, and decoded bit for bit on the card with
+    both Rice engines."""
+    from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.codec import device_decoder
+
+    rng = np.random.default_rng(13)
+    t = np.arange(2 * 96 * 500).reshape(2, 96, 500)
+    x = (300.0 * np.sin(t / 900.0) + np.cumsum(rng.normal(0, 0.01, t.shape), axis=2))
+    x = x.astype(dtype)
+    x[0, 3, :40] = np.nan
+    x[1, 5, 7], x[1, 6, 7], x[0, 7, 7] = np.inf, -np.inf, -0.0
+    gpu = RasterFLACConverter(device="cuda").encode_array(x, compression_level=2)
+    cpu = RasterFLACConverter(device="cpu").encode_array(x, compression_level=2)
+    assert gpu == cpu
+    conv = RasterFLACConverter(device="cuda")
+    before = device_decoder.HOST_ROUTES
+    for scan in ("full", "group"):
+        got, _ = conv.decode_bytes_device(gpu, scan=scan)
+        assert got.device.type == "cuda" and str(got.dtype) == f"torch.{dtype}"
+        assert got.cpu().numpy().tobytes() == x.tobytes()
+    assert device_decoder.HOST_ROUTES == before
