@@ -279,10 +279,16 @@ def index_add_ms(samples, n_words: int) -> float:
     return cuda_ms(lambda: acc.index_add_(0, idx, contrib), iters=10)
 
 
+def share(bnd: dict, ms: float) -> str:
+    """A kernel's share of its bound: bound time over measured time."""
+    return f"{100 * bnd['bound_ms'] / ms:.1f}% of its bound"
+
+
 def pack_versions(samples, hdr, n_words: int, N: int, label: str) -> dict:
     """Every pack version on one sample stream, OR'd into a buffer holding
     the chunk's header words: identical to the plain version, no err,
-    timed.  Returns {version: (ms, max_abs_err)} plus "plain"."""
+    timed.  Returns {version: (ms, max_abs_err)} plus "plain" and the
+    stream's bound."""
     import torch
 
     from flac_raster_tpu_torch.ops import pack
@@ -306,9 +312,11 @@ def pack_versions(samples, hdr, n_words: int, N: int, label: str) -> dict:
         ms = cuda_ms(lambda: pack.pack_tokens(sv, sl, so, n_words, out=buf, version=v,
                                               slots_per_group=N, err=err), iters=20)
         res[v] = (ms, max_err)
+    res["bound"] = pack_bound(samples)
     log(f"pack versions, {label} sample stream ({so.numel()} tokens): identical to plain "
-        "(tolerance 0); " + ", ".join(f"{v} {res[v][0]:.4f} ms" for v in pack.VERSIONS)
-        + f", plain {res['plain']:.4f} ms")
+        "(tolerance 0); " + ", ".join(f"{v} {res[v][0]:.4f} ms ({share(res['bound'], res[v][0])})"
+                                      for v in pack.VERSIONS)
+        + f", plain {res['plain']:.4f} ms, bound {res['bound']}")
     return res
 
 
@@ -386,8 +394,11 @@ def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
     # once; a shift, a clamp and an add per sample and parameter
     rice_bound = bound(z.numel() * 4 + (sums_k.numel() + zmax_k.numel()) * 4,
                        z.numel() * (rice_cost.KMAX + 1) * 3)
+    # partitions whose max passes the clamp: the kernel's per-sample branch
+    clamped = int(((zmax_p.long() & M32) > rice_cost.QCLAMP).sum())
     log(f"rice_cost_sums: identical to plain at every k (tolerance 0: integer table); "
-        f"kernel {rice_ms:.4f} ms, plain {rice_plain_ms:.4f} ms, bound {rice_bound}")
+        f"kernel {rice_ms:.4f} ms ({share(rice_bound, rice_ms)}), plain {rice_plain_ms:.4f} ms, "
+        f"bound {rice_bound}; {clamped} of {zmax_p.numel()} partitions past the clamp")
     del z, sums_k, sums_p, zmax_k, zmax_p
 
     plan = dc.plan_blocks(blocks, blocksize=N, bps=16, max_lpc_order=8,
@@ -402,7 +413,6 @@ def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
         f"{tok['samples'][0].numel()} tokens, {n_words} words")
     hdr = pack.pack_tokens(*tok["header"], n_words)
     l5 = pack_versions(tok["samples"], hdr, n_words, N, "level-5")
-    l5_bound = pack_bound(tok["samples"])
     l5_lib = index_add_ms(tok["samples"], n_words)
     hostile_pack(tok["samples"], n_words, N)
     del plan, tok, hdr, lpc, blocks, x
@@ -427,7 +437,7 @@ def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
     for v in pack.VERSIONS:
         out.append(kernel_entry(
             PACK_NAMES[v], PACK_SOURCES[v], f"flac_raster_tpu/ops/pallas_pack.py:{PACK_REPLACES[v]}",
-            max(l5[v][1], l8[v][1]), l5[v][0], l5["plain"], l5_bound, l5_lib,
+            max(l5[v][1], l8[v][1]), l5[v][0], l5["plain"], l5["bound"], l5_lib,
             ms_l8_midside=l8[v][0], plain_ms_l8_midside=l8["plain"]))
     return out
 

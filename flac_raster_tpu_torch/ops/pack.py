@@ -15,7 +15,9 @@ gives the same words (:func:`pack_tokens_reference`):
   * ``v3`` (``csrc/pack_v3.cu``, K5): one block per 4096-token tile; a
     128-word-aligned shared window; interior words stored plainly.
   * ``v4`` (``csrc/pack_v4.cu``, K6): as v2, the window built by a one-hot
-    product on the tensor cores.
+    product on the tensor cores (``mma.sync`` m16n8k32, u8), run only on
+    the 16-word tiles the tokens reach; :func:`pack_v4_mirror` repeats its
+    arithmetic and fragment layout in plain PyTorch for the tests.
   * ``v5`` (``csrc/pack_v5.cu``, K7): one thread per token, warp-aggregated
     OR, one ``atomicOr`` per distinct word per warp.
 
@@ -40,7 +42,8 @@ import torch
 from .. import _build
 
 __all__ = [
-    "pack_tokens", "pack_tokens_reference", "window_err_reference", "LAUNCHES", "VERSIONS",
+    "pack_tokens", "pack_tokens_reference", "pack_v4_mirror", "window_err_reference", "LAUNCHES",
+    "VERSIONS",
 ]
 
 VERSIONS = ("v1", "v2", "v3", "v4", "v5")
@@ -54,6 +57,7 @@ TILE_TOKENS = 4096       # v3: tokens per block
 MAX_PITCH_BITS = 32      # start-to-start pitch bound of the sample stream
 GAP_BITS = 1024          # one larger gap per group of slots_per_group tokens
 _SMEM_WORDS = 12288      # 48 KB: v3's window without an opt-in attribute
+_M32 = 0xFFFFFFFF
 
 
 def tile_window_words(slots_per_group: int) -> int:
@@ -81,24 +85,124 @@ def _prepare(vals, lens, offs, n_words, out):
     return vals.contiguous(), lens.contiguous(), offs.contiguous(), out
 
 
+def _contributions(vals, lens, offs):
+    """(w0, c0, c1, live) of each token in int64: the bits that land in
+    its word w0 and those that spill into w0 + 1."""
+    l = lens.long()
+    live = l > 0
+    mask = torch.where(l >= 32, _M32, (1 << l.clamp(0, 31)) - 1)
+    v = torch.where(live, (vals.long() & _M32) & mask, 0)
+    sh = 32 - (offs & 31) - l
+    c0 = torch.where(sh >= 0, v << sh.clamp(0, 31), v >> (-sh).clamp(0, 31))
+    c1 = torch.where(sh < 0, v << (32 + sh).clamp(0, 31), 0)
+    return offs >> 5, c0 & _M32, c1 & _M32, live
+
+
+def _or_into(out, n_words, idx, c):
+    """OR contributions c at word indices idx into out (disjoint bits: an
+    int64 index_add_), dropping those outside [0, n_words)."""
+    acc = out.long() & _M32
+    keep = (idx >= 0) & (idx < n_words)
+    acc.index_add_(0, torch.where(keep, idx, 0), torch.where(keep, c, 0))
+    out.copy_((acc & _M32).to(torch.int32))
+    return out
+
+
 def pack_tokens_reference(vals, lens, offs, n_words: int, out=None) -> torch.Tensor:
     """Plain PyTorch version: int64 index_add_ of each token's two word
     contributions, then the low 32 bits (disjoint bit ranges: add == OR)."""
     vals, lens, offs, out = _prepare(vals, lens, offs, n_words, out)
-    l = lens.long()
-    live = l > 0
-    mask = torch.where(l >= 32, 0xFFFFFFFF, (1 << l.clamp(0, 31)) - 1)
-    v = torch.where(live, (vals.long() & 0xFFFFFFFF) & mask, 0)
-    w0 = offs >> 5
-    sh = 32 - (offs & 31) - l
-    c0 = torch.where(sh >= 0, v << sh.clamp(0, 31), v >> (-sh).clamp(0, 31))
-    c1 = torch.where(sh < 0, v << (32 + sh).clamp(0, 31), 0)
-    acc = out.long() & 0xFFFFFFFF
-    for idx, c in ((w0, c0), (w0 + 1, c1)):
-        keep = (idx >= 0) & (idx < n_words)
-        acc.index_add_(0, torch.where(keep, idx, 0), torch.where(keep, c & 0xFFFFFFFF, 0))
-    out.copy_((acc & 0xFFFFFFFF).to(torch.int32))
-    return out
+    w0, c0, c1, _ = _contributions(vals, lens, offs)
+    return _or_into(out, n_words, torch.cat([w0, w0 + 1]), torch.cat([c0, c1]))
+
+
+def _eq_bytes(x, y):
+    """0x01 in each byte where the 32-bit x and y agree (pack_v4.cu)."""
+    d = x ^ y
+    t = (d & 0x7F7F7F7F) + 0x7F7F7F7F
+    return (~(t | d | 0x7F7F7F7F) & _M32) >> 7
+
+
+def _mma_m16n8k32(a, b, c):
+    """mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 on per-lane
+    registers, by the PTX ISA's fragment layout: a (..., 32, 4), b (..., 32,
+    2) and c (..., 32, 4) hold the bytes / int32s of lane (g = lane / 4,
+    t = lane % 4).  A register r byte i is A[g + 8 (r % 2)][16 (r / 2) + 4t
+    + i]; B register r byte i is B[16 r + 4t + i][g]; C register i is
+    C[g + 8 (i / 2)][2t + i % 2]."""
+    lane = torch.arange(32)
+    g, t = (lane >> 2)[:, None, None], (lane & 3)[:, None, None]
+    r, i = torch.arange(4)[None, :, None], torch.arange(4)[None, None, :]
+    shift = 8 * torch.arange(4)
+    A = a.new_zeros(a.shape[:-2] + (16, 32))
+    A[..., g + 8 * (r & 1), 16 * (r >> 1) + 4 * t + i] = (a[..., None] >> shift) & 255
+    B = b.new_zeros(b.shape[:-2] + (32, 8))
+    B[..., 16 * r[:, :2] + 4 * t + i, g] = (b[..., None] >> shift) & 255
+    rows = (lane >> 2)[:, None] + 8 * (torch.arange(4) >> 1)
+    cols = 2 * (lane & 3)[:, None] + (torch.arange(4) & 1)
+    return c + (A @ B)[..., rows, cols]
+
+
+def pack_v4_mirror(vals, lens, offs, n_words: int, out=None):
+    """K6's arithmetic in plain PyTorch (for the tests only); returns
+    (words, err).
+
+    Per sub-tile of SUB_TOKENS tokens: window words counted from the first
+    token's word, tokens outside [0, SUB_WINDOW - 2] dropped and flagged;
+    per chunk of 32 tokens, each lane's registers as pack_v4.cu builds them
+    (A: byte compares of 4 tokens' word bytes with its tile rows; B: byte
+    g % 4 of their c0, or of c1 for g >= 4), one m16n8k32 product per tile
+    the chunk's live tokens start in; then the flush's shuffles: word r of
+    a tile is C[r][0..3] | C[r - 1][4..7], the tile before's row 15 above
+    row 0, written by lanes t = 0 (word g) and t = 1 (word g + 8) of the
+    tiles the tokens' words or spills touch.
+    """
+    vals, lens, offs, out = _prepare(vals, lens, offs, n_words, out)
+    n = offs.numel()
+    S = -(-n // SUB_TOKENS)
+    pad = S * SUB_TOKENS - n
+    w0, c0, c1, live = (torch.nn.functional.pad(x, (0, pad)).view(S, 2, 32)
+                        for x in _contributions(vals, lens, offs))
+    base = w0[:, 0, 0]
+    rel = w0 - base[:, None, None]
+    bad = live & ((rel < 0) | (rel > SUB_WINDOW - 2))
+    ok = live & ~bad
+    r = torch.where(ok, rel, 0)
+    tiles = torch.arange(SUB_WINDOW // 16)[:, None]                     # (8, 1)
+    starts = (ok[:, :, None] & ((r >> 4)[:, :, None] == tiles)).any(-1)  # (S, chunk, tile)
+    flush = (ok[:, :, None] & (((r >> 4)[:, :, None] == tiles)
+                               | (((r + 1) >> 4)[:, :, None] == tiles))).any(-1).any(1)
+
+    lane = torch.arange(32)
+    g, tq = lane >> 2, lane & 3
+    wb = torch.where(ok, r, 0xFF)
+    c_lane = torch.where((g < 4)[:, None], c0[:, :, None], c1[:, :, None])  # (S, ch, lane, token)
+    regs = []
+    for h in range(2):                                # tokens 4t.., 16 + 4t..
+        tok = 16 * h + 4 * tq[:, None] + torch.arange(4)                # (32, 4)
+        w = sum(wb[..., tok[:, i]] << (8 * i) for i in range(4))       # (S, ch, 32)
+        c = c_lane[:, :, lane[:, None], tok]                           # (S, ch, 32, 4)
+        b = sum(((c[..., i] >> (8 * (g & 3))) & 255) << (8 * i) for i in range(4))
+        regs.append((w, b))
+    row = (16 * tiles + g) * 0x01010101                                 # (8, 32)
+    acc = torch.zeros((S, SUB_WINDOW // 16, 32, 4), dtype=torch.int64)
+    for ch in range(SUB_TOKENS // 32):
+        (wlo, b0), (whi, b1) = ((w[:, ch, None], b[:, ch, None]) for w, b in regs)
+        a = torch.stack([_eq_bytes(wlo, row), _eq_bytes(wlo, row + 0x08080808),
+                         _eq_bytes(whi, row), _eq_bytes(whi, row + 0x08080808)], -1)
+        d = _mma_m16n8k32(a, torch.stack([b0, b1], -1).expand(-1, len(tiles), -1, -1), acc)
+        acc = torch.where(starts[:, ch, :, None, None], d, acc)
+
+    lo, hi = acc[..., 0] | (acc[..., 1] << 8), acc[..., 2] | (acc[..., 3] << 8)
+    prev = torch.cat([torch.zeros_like(hi[:, :1]), hi[:, :-1]], 1)      # tile n - 1
+    above = ((g + 7) & 7) * 4 + (tq | 2)
+    row_g = lo | torch.where(g > 0, lo[..., above], prev[..., above])
+    row_g8 = hi | torch.where(g > 0, hi[..., above], lo[..., above])
+    other = torch.where((tq & 1) == 1, row_g, row_g8)[..., lane ^ 1]
+    word = torch.where(tq == 0, row_g | (other << 16), other | (row_g8 << 16))
+    idx = base[:, None, None] + 16 * tiles + g + 8 * (tq == 1)          # (S, 8, 32)
+    write = flush[:, :, None] & (tq < 2)
+    return _or_into(out, n_words, idx[write], word[write]), bool(bad.any())
 
 
 def window_err_reference(lens, offs, version: str, slots_per_group: int = 4096) -> bool:

@@ -45,6 +45,43 @@ def test_rice_cost_kernel_matches_plain(cuda, parts):
         assert torch.equal(sums[:, k], ref_sums[:, k]), k
 
 
+def _clamp_edges(rng, rows_per_edge, n, parts):
+    """Rows whose partitions peak at (2^17 + 1) * 2^k - 1 (no sample clamped
+    at k) or (2^17 + 1) * 2^k (clamped at k), dense near the peak or with a
+    single large sample; then a 0xFFFFFFFF row, a zero row and rows with one
+    nonzero sample per partition."""
+    base = n // parts
+    rows = []
+    for k in (0, 1, 3, 9, 14):
+        for peak in (((1 << 17) + 1 << k) - 1, (1 << 17) + 1 << k):
+            dense = rng.integers(peak // 2, peak + 1, (rows_per_edge, n), dtype=np.uint64)
+            sparse = rng.integers(0, 1 << 10, (rows_per_edge, n), dtype=np.uint64)
+            dense[:, ::base] = sparse[:, base // 2 :: base] = peak
+            rows += [dense, sparse]
+    single = np.zeros((2, n), np.uint64)
+    single[:, rng.integers(0, base) :: base] = [[1], [(1 << 32) - 1]]
+    rows += [np.full((1, n), (1 << 32) - 1, np.uint64), np.zeros((1, n), np.uint64), single]
+    return torch.from_numpy(np.concatenate(rows).astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("n,parts", [(4096, 1), (4096, 8), (4096, 64), (1000, 8)])
+def test_rice_cost_kernel_clamp_boundaries(cuda, n, parts):
+    """The clamp's edges at several k, extreme and single-sample partitions,
+    one partition of 4096 samples (64 segments) and one of 125 (no 16-byte
+    loads, a partial segment); and the same rows from a view that is not
+    16-byte aligned."""
+    z = _clamp_edges(np.random.default_rng(n + parts), 3, n, parts).to(cuda)
+    flat = torch.zeros(z.numel() + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = z.reshape(-1)
+    for zz in (z, flat[1:].view(z.shape)):
+        sums, zmax = rice_cost.rice_cost_sums(zz, parts)
+        ref_sums, ref_zmax = rice_cost.rice_cost_sums_reference(zz, parts)
+        torch.cuda.synchronize()
+        assert torch.equal(zmax, ref_zmax)
+        for k in range(rice_cost.KMAX + 1):
+            assert torch.equal(sums[:, k], ref_sums[:, k]), k
+
+
 def _stream(rng, nt, max_len=32):
     lens = rng.integers(0, max_len + 1, nt).astype(np.int32)
     vals = rng.integers(0, 1 << 32, nt, dtype=np.uint64).astype(np.uint32)
@@ -141,6 +178,61 @@ def test_pack_versions_match_plain(cuda, version, stream):
     hdr[::7] = 0x01010101
     both = pack.pack_tokens(vals, lens, offs, n_words, out=hdr.clone(), version=version, err=err)
     assert torch.equal(both, ref | hdr)
+
+
+def _gap_mid_subtile(rng, nt, group=4096):
+    """Max-pitch 32-bit tokens straddling words, every fifth one dead, and
+    each group's gap of 1024 bits placed inside a 64-token sub-tile (a
+    chunk of 16 tokens then reaches word tiles on both sides of it)."""
+    vals, lens, offs = _max_pitch(nt, group)
+    pitch = np.diff(offs, prepend=offs[0] - 32)
+    pitch[group::group] = 32
+    pitch[group + 37 :: group] += 1024 - 32
+    offs = np.cumsum(pitch) - 25
+    lens = lens.copy()
+    lens[::5] = 0
+    return rng.integers(0, 1 << 32, nt, dtype=np.uint64).astype(np.uint32), lens, offs
+
+
+def _midside_level8(cuda, frames=8, n=4096):
+    """The sample stream of a level-8 mid-side chunk laid out by the port's
+    emitter on the card."""
+    from flac_raster_tpu_torch.codec.encoder import EncoderConfig
+    from flac_raster_tpu_torch.ops import device_emit
+
+    rng = np.random.default_rng(8)
+    t = np.arange(frames * n)
+    left = 5000 * np.sin(t / 300.0) + rng.normal(0, 9, t.size)
+    x = np.stack([left, 0.9 * left + rng.normal(0, 4, t.size)]).astype(np.int32)
+    x = torch.from_numpy(np.ascontiguousarray(x.reshape(2, frames, n).transpose(1, 0, 2)))
+    cfg = EncoderConfig.from_level(8)
+    plan, xs, code, ch_bps = device_emit._plan_mid_side(
+        x.to(cuda), 16, blocksize=n, max_lpc_order=cfg.max_lpc_order, use_lpc=True,
+        max_partition_order=6, apodizations=cfg.apodizations)
+    tok = device_emit.emit_tokens(xs, plan, 0, blocksize=n, bps=16, sr_code=9, bps_code=4,
+                                  bs_code=12, max_partition_order=6, chan_code=code,
+                                  ch_bps=ch_bps)
+    return tok["samples"]
+
+
+@pytest.mark.parametrize("version", ["v2", "v3", "v4"])
+@pytest.mark.parametrize("stream", ["gap_mid_subtile", "midside_level8"])
+def test_windowed_pack_versions_edge_streams(cuda, version, stream):
+    """The windowed versions (v4's tile band and fragment layout above all)
+    on a gap inside a sub-tile with 32-bit and dead tokens, and on a
+    level-8 mid-side sample stream: identical to plain, no err."""
+    if stream == "gap_mid_subtile":
+        vals, lens, offs = _on(cuda, *_gap_mid_subtile(np.random.default_rng(3), 5 * 4096 + 99))
+    else:
+        vals, lens, offs = _midside_level8(cuda)
+    assert not pack.window_err_reference(lens.cpu(), offs.cpu(), version)
+    n_words = int(offs[-1]) // 32 + 3
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = pack.pack_tokens(vals, lens, offs, n_words, version=version, err=err)
+    ref = pack.pack_tokens_reference(vals, lens, offs, n_words)
+    torch.cuda.synchronize()
+    assert int(err) == 0
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("version", ["v1", "v2", "v3", "v4", "v5"])

@@ -10,6 +10,10 @@ the same token count and buffer size, so each JAX version compiles once.
 The port's own sample streams (mono, independent channels, mid-side,
 level 8) meet the windowed versions' precondition; a stream that breaks it
 sets ``err`` for v2-v4, which the encoder turns into an error.
+
+``pack_v4_mirror`` repeats the v4 kernel's own arithmetic (its band of
+word tiles, its mma fragment layout, its flush); it is held against the
+plain version and the JAX v4 on those streams and on edge streams.
 """
 
 import numpy as np
@@ -171,3 +175,52 @@ def test_encoder_raises_on_a_pack_err(monkeypatch):
             m.setattr(pack, "window_err_reference", lambda *a, **k: True)
             with pytest.raises(RuntimeError, match="precondition"):
                 encode_flac_device(x, 44100, 16, compression_level=0, device="cpu")
+
+
+def _gap_mid_subtile_stream():
+    """Max-pitch 32-bit tokens straddling words, every fifth one dead, each
+    group's 1024-bit gap inside a 64-token sub-tile (token 37 of it)."""
+    rng = np.random.default_rng(37)
+    pitch = np.full(NT, MAX_PITCH_BITS, np.int64)
+    pitch[N + 37 :: N] += GAP_BITS - MAX_PITCH_BITS
+    lens = np.full(NT, 32, np.int32)
+    lens[::5] = 0
+    vals = rng.integers(0, 1 << 32, NT, dtype=np.uint64).astype(np.uint32)
+    return vals, lens, np.cumsum(pitch) - pitch[0] + 7
+
+
+def _dense_one_bit_stream():
+    return np.ones(NT, np.uint32), np.ones(NT, np.int32), np.arange(NT, dtype=np.int64) + 7
+
+
+V4_STREAMS = {**STREAMS, "gap_mid_subtile": _gap_mid_subtile_stream,
+              "dense_one_bit": _dense_one_bit_stream}
+
+
+@pytest.mark.parametrize("name", list(V4_STREAMS))
+def test_v4_mirror_equals_plain_and_jax(name):
+    """v4's arithmetic: a sub-tile across the gap, max pitch, dense one-bit
+    tokens, 32-bit and dead tokens, a mid-side sample stream; into a zeroed
+    buffer and into one that holds other words."""
+    vals, lens, offs = V4_STREAMS[name]()
+    args = [torch.from_numpy(a) for a in (vals.view(np.int32), lens, offs)]
+    assert not pack.window_err_reference(args[1], args[2], "v4", slots_per_group=N)
+    ref = pack.pack_tokens_reference(*args, N_WORDS)
+    out, err = pack.pack_v4_mirror(*args, N_WORDS)
+    assert not err
+    assert torch.equal(out, ref)
+    jax_v4 = np.asarray(jax_pack(
+        jnp.asarray(vals), jnp.asarray(lens), jnp.asarray(offs.astype(np.int32)),
+        n_words=N_WORDS, slots_per_group=N, interpret=True, version="v4"))
+    assert np.array_equal(out.numpy().view(np.uint32), jax_v4)
+    hdr = torch.zeros(N_WORDS, dtype=torch.int32)
+    hdr[::7] = 0x01010101
+    both, _ = pack.pack_v4_mirror(*args, N_WORDS, out=hdr.clone())
+    assert torch.equal(both, pack.pack_tokens_reference(*args, N_WORDS, out=hdr.clone()))
+
+
+def test_v4_mirror_flags_what_the_plain_check_flags():
+    vals, lens, offs = _hostile()
+    args = [torch.from_numpy(a) for a in (vals.view(np.int32), lens, offs)]
+    _, err = pack.pack_v4_mirror(*args, N_WORDS)
+    assert err and pack.window_err_reference(args[1], args[2], "v4")

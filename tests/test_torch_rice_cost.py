@@ -4,8 +4,11 @@ On the CPU the wrapper runs its plain PyTorch version.  It must equal the
 JAX planner's clamped pure-jnp table (``device_codec._rice_search``'s
 non-Pallas branch) exactly at every k, and the Pallas kernel
 ``rice_cost_sums_hp`` (interpret mode) after the planner's validity mask,
-which is the byte-identity condition.  The CUDA kernel itself is compared
-with the plain version in tests/test_torch_kernels_gpu.py.
+which is the byte-identity condition.  The kernel's own arithmetic
+(bit-sliced counts, the clamp branch, segments of 64 samples) is mirrored
+by ``rice_cost_sums_bitsliced``, held here against both tables at the
+clamp's edges.  The CUDA kernel itself is compared with the plain version
+in tests/test_torch_kernels_gpu.py.
 """
 
 import numpy as np
@@ -31,8 +34,8 @@ def _z(seed, rows=16):
 
 def _jnp_clamped(z, parts):
     """The JAX planner's plain branch (device_codec.py:224-229)."""
-    B = z.shape[0]
-    zr = jnp.asarray(z).reshape(B, parts, N // parts)
+    B, n = z.shape
+    zr = jnp.asarray(z).reshape(B, parts, n // parts)
     sums = [
         jnp.minimum(zr >> jnp.uint32(k), jnp.uint32(1 << 17)).astype(jnp.int32).sum(axis=-1)
         for k in range(KMAX_KERNEL + 1)
@@ -99,3 +102,63 @@ def test_cpu_tensor_takes_plain_version_without_a_launch():
 def test_rejects_bad_input(shape, dtype, parts):
     with pytest.raises(ValueError):
         rice_cost.rice_cost_sums(torch.zeros(shape, dtype=dtype), parts)
+
+
+def _edges(rng, n, parts, k):
+    """Partitions peaking at (2^17 + 1) * 2^k - 1 (nothing clamped at k)
+    and at (2^17 + 1) * 2^k (clamped at k), dense near the peak or with a
+    single large sample among small ones."""
+    base = n // parts
+    rows = []
+    for peak in ((((1 << 17) + 1) << k) - 1, ((1 << 17) + 1) << k):
+        dense = rng.integers(peak // 2, peak + 1, (2, n), dtype=np.uint64)
+        sparse = rng.integers(0, 1 << 10, (2, n), dtype=np.uint64)
+        dense[:, ::base] = peak
+        sparse[:, base // 2 :: base] = peak
+        rows += [dense, sparse]
+    return np.concatenate(rows).astype(np.uint32)
+
+
+def _extremes(rng, n, parts):
+    """A 0xFFFFFFFF row, a zero row, one nonzero sample per partition (1 and
+    0xFFFFFFFF), and _z's random rows."""
+    base = n // parts
+    single = np.zeros((2, n), np.uint32)
+    single[0, rng.integers(0, base) :: base] = 1
+    single[1, rng.integers(0, base) :: base] = 0xFFFFFFFF
+    return np.concatenate([np.full((1, n), 0xFFFFFFFF, np.uint32), np.zeros((1, n), np.uint32),
+                           single, _z(int(rng.integers(1 << 16)), rows=4)[:, :n]])
+
+
+def _mirror_equals_both_tables(z, parts):
+    zt = torch.from_numpy(z.view(np.int32))
+    sums, zmax = rice_cost.rice_cost_sums_bitsliced(zt, parts)
+    ref_sums, ref_zmax = rice_cost.rice_cost_sums_reference(zt, parts)
+    jax_sums, jax_zmax = _jnp_clamped(z, parts)
+    assert torch.equal(zmax, ref_zmax)
+    assert np.array_equal(zmax.numpy().view(np.uint32), jax_zmax)
+    for k in range(rice_cost.KMAX + 1):
+        assert torch.equal(sums[:, k], ref_sums[:, k]), k
+        assert np.array_equal(sums[:, k].numpy(), jax_sums[:, k]), k
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 9, 14])
+@pytest.mark.parametrize("parts", [1, 8, 64])
+def test_bitsliced_mirror_at_the_clamp_edges(parts, k):
+    """The kernel's arithmetic where its clamp branch starts and stops: the
+    bit-count identity up to (2^17 + 1) * 2^k - 1, the per-sample sum from
+    (2^17 + 1) * 2^k; parts = 1 walks 64 segments of one partition."""
+    _mirror_equals_both_tables(_edges(np.random.default_rng(10 * k + parts), N, parts, k), parts)
+
+
+@pytest.mark.parametrize("parts", [1, 8, 64])
+def test_bitsliced_mirror_on_extreme_partitions(parts):
+    _mirror_equals_both_tables(_extremes(np.random.default_rng(parts), N, parts), parts)
+
+
+def test_bitsliced_mirror_on_partial_segments():
+    """125-sample partitions: a full and a zero-padded segment of 64."""
+    n, parts = 1000, 8
+    rng = np.random.default_rng(125)
+    z = np.concatenate([_edges(rng, n, parts, 2), _extremes(rng, n, parts)])
+    _mirror_equals_both_tables(z, parts)
