@@ -26,7 +26,8 @@ is not 0:
   6. each decode kernel against its plain PyTorch version on the card, on
      one real 4096-frame chunk of the phase-3 file (plus a lane of random
      words for the Rice scan): outputs must be identical; all are timed
-     with CUDA events;
+     with CUDA events (the Rice scan on the file's lanes, and again with
+     the hostile lane);
   7. the decode path: ``RasterFLACConverter(device="cuda")
      .decode_bytes_device`` of the phase-3 file, once to warm up and once
      timed; it must stay on the device route, launch all three decode
@@ -48,7 +49,8 @@ is not 0:
      the file's chunk of 3 165 frames.
 
 Phase 6 also holds the group step K9 against its plain version (one step)
-and the grouped scan against the chain scan (the whole chunk).
+and the grouped scan against the chain scan (the whole chunk).  Phases 2,
+6 and 11 log each kernel's time as a share of its bound.
 
 Every driven path runs with every launch count set to 0 just before it
 and read just after; a path's kernels must have launched, and every
@@ -521,8 +523,9 @@ def group_step_phase(words, args, N: int, label: str) -> dict:
     chunk_bound = bound(words.numel() * 4 + 7 * 4 * B + N * B * 4, 16 * all_codes)
     log(f"rice_group_step, {label} chunk ({B} lanes): one step identical to plain, the "
         f"grouped scan ({-(-N // g)} launches) identical to rice_scan_full (tolerance 0); "
-        f"step {step_ms:.4f} ms, plain step {plain_ms:.4f} ms (one call), bound {step_bound}; "
-        f"chunk {chunk_ms:.4f} ms, bound {chunk_bound}")
+        f"step {step_ms:.4f} ms ({share(step_bound, step_ms)}), plain step {plain_ms:.4f} ms "
+        f"(one call), bound {step_bound}; chunk {chunk_ms:.4f} ms "
+        f"({share(chunk_bound, chunk_ms)}), bound {chunk_bound}")
     return {"step_ms": step_ms, "plain_ms": plain_ms, "bound": step_bound, "err": step_err,
             "chunk_ms": chunk_ms, "chunk_bound": chunk_bound}
 
@@ -585,13 +588,20 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         raise AssertionError("rice_scan_full differs from its plain version")
     if err_k[:F].any():
         raise AssertionError("rice_scan_full flagged a lane of a valid file")
-    b_ms = cuda_ms(lambda: rice_scan.rice_scan_full(words_b, *scan_args, N), iters=10, warmup=1)
+    # timed on the file's lanes, the main path's shape; the hostile lane,
+    # alone in its warp, takes the reader's general path at most codes
+    file_args = [a[:F] for a in scan_args]
+    b_ms = cuda_ms(lambda: rice_scan.rice_scan_full(windows, *file_args, N), iters=10, warmup=1)
+    b_ms_hostile = cuda_ms(lambda: rice_scan.rice_scan_full(words_b, *scan_args, N), iters=10,
+                           warmup=1)
     # words and the lane headers read, zs written; ~16 integer operations
-    # per code this run decodes (lanes that end in err stop early)
-    codes = int(torch.where(err_k, 0, scan_args[4].long()).sum())
-    b_bound = bound(words_b.numel() * 4 + 7 * 4 * words_b.shape[0] + zs_k.numel() * 4, 16 * codes)
+    # per code this run decodes
+    codes = int(file_args[4].long().sum())
+    b_bound = bound(windows.numel() * 4 + 7 * 4 * F + F * N * 4, 16 * codes)
     log(f"rice_scan_full: zs, rend and err identical to plain (tolerance 0), hostile lane "
-        f"err={bool(err_k[-1])}; kernel {b_ms:.4f} ms, plain {b_plain_ms:.4f} ms (one call)")
+        f"err={bool(err_k[-1])}; kernel {b_ms:.4f} ms on the {F} file lanes "
+        f"({share(b_bound, b_ms)}), {b_ms_hostile:.4f} ms with the hostile lane, plain "
+        f"{b_plain_ms:.4f} ms (one call), bound {b_bound}")
     k9 = group_step_phase(words_b, scan_args, N, "level-5")
 
     # the hostile lane restores with 16-bit coefficients: int32 wraparound
@@ -608,15 +618,15 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     c_ms = cuda_ms(lambda: restore.restore(*rest_args), iters=10, warmup=1)
     # zs read and samples written once; a multiply and an add per tap
     c_bound = bound(2 * zs_k.numel() * 4, 2 * N * int(rest_args[1].long().sum()))
-    log(f"restore: identical to plain (tolerance 0: int32 wraparound); kernel {c_ms:.4f} ms, "
-        f"plain {c_plain_ms:.4f} ms (one call), bound {c_bound}")
+    log(f"restore: identical to plain (tolerance 0: int32 wraparound); kernel {c_ms:.4f} ms "
+        f"({share(c_bound, c_ms)}), plain {c_plain_ms:.4f} ms (one call), bound {c_bound}")
     return [
         kernel_entry("gather_windows", "gather.cu", "flac_raster_tpu/ops/pallas_gather.py:60",
                      int((win_k.long() - win_p.long()).abs().max()), a_ms, a_plain_ms,
                      a_bound, a_lib_ms),
         kernel_entry("rice_scan_full", "rice_scan.cu",
                      "flac_raster_tpu/ops/pallas_rice_scan2.py:242", scan_err, b_ms,
-                     b_plain_ms, b_bound),
+                     b_plain_ms, b_bound, ms_with_hostile_lane=b_ms_hostile),
         kernel_entry("rice_group_step", "rice_group_step.cu",
                      "flac_raster_tpu/ops/pallas_rice_scan.py:189", k9["err"], k9["step_ms"],
                      k9["plain_ms"], k9["bound"], ms_chunk=k9["chunk_ms"],
@@ -704,7 +714,8 @@ def phase_wide_kernels(blob: bytes, dev) -> dict:
     # counted as two operations
     rest_bound = bound(2 * zs.numel() * 4, 2 * N * int(h["order"].long().sum()))
     log(f"restore, wide ({F} lanes): identical to plain (tolerance 0: int64 sum, int32 "
-        f"wraparound); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call), bound {rest_bound}")
+        f"wraparound); kernel {ms:.4f} ms ({share(rest_bound, ms)}), plain {plain_ms:.4f} ms "
+        f"(one call), bound {rest_bound}")
     rest_err = int((sig_k.long() - sig_p.long()).abs().max())
     return {"k9": k9, "restore": {"ms_wide": ms, "plain_ms_wide": plain_ms,
                                   "bound_ms_wide": rest_bound["bound_ms"],
@@ -817,7 +828,7 @@ def main() -> int:
     native.build()
     t2 = time.perf_counter()
     log(f"build: CUDA kernels {t1 - t0:.1f} s, host C {t2 - t1:.1f} s")
-    log("\n".join(l for l in _build.nvcc_log().splitlines() if "ptxas" in l))
+    log("\n".join(l for l in _build.nvcc_log().splitlines() if "ptxas" in l or "spill" in l))
 
     t0 = time.perf_counter()
     scene = make_raster(SCENE_SIZE)

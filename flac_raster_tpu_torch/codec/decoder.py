@@ -4,8 +4,9 @@ The port of the native branch of ``flac_raster_tpu.codec.decoder.decode_flac``
 (``decoder.py:259-280``): the metadata is parsed in Python, every frame is
 decoded by the host C decoder (``native.decode_frames``), and each frame's
 CRC-16 is checked with ``native.crc16_spans``.  The JAX package's pure
-Python frame walk (for streams the native decoder rejects) is not ported:
-such a stream raises here.
+Python frame walk (for streams whose STREAMINFO leaves the sample count
+unset) is not ported: such a stream raises here (ROADMAP Queue 1 item
+6(b)).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def decode_flac(
     if not streaminfo.total_samples or not streaminfo.channels:
         raise NotImplementedError(
             "streams whose STREAMINFO leaves the sample count unset need the "
-            "Python frame walk, which is not ported"
+            "Python frame walk, which is not ported yet (ROADMAP Queue 1 item 6(b))"
         )
     arr = np.frombuffer(buf, dtype=np.uint8)
     got = native.decode_frames(

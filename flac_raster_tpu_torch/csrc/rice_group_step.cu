@@ -9,14 +9,15 @@
 // lane in XLA, transposes them to (words, lanes), realigns them to the
 // cursor with staged word and bit shifts (woff, sh) and pads lanes to 128
 // -- all Mosaic layout.  On the card a thread loads from its own window
-// row, so one thread owns one lane: the step re-opens the three-word
-// register bit buffer of the chain scan (rice_common.cuh) at the lane's
-// cursor and decodes its group of codes exactly as K8 does, so a loop of
-// steps over the block gives K8's zs, rend and err.
+// row, so one thread owns one lane: the step opens the streaming bit
+// reader of the chain scan (rice_common.cuh) at the lane's cursor and
+// decodes its group of codes exactly as K8 does, so a loop of steps over
+// the block gives K8's zs, rend and err.
 //
 // What bounds it: as K8, the serial code chain of each lane (latency), plus
-// one launch and one reload of the carries per step; at 55 codes per step a
-// 4096-sample block takes 75 launches.  Codes are stored code-major into
+// one launch, one reload of the carries and one wait for the reader's
+// first ring fill per step; at 55 codes per step a 4096-sample block takes
+// 75 launches.  Codes are stored code-major into
 // rows j0 .. j1-1 of the (n, n_lanes) buffer that K8 fills and the restore
 // kernel reads.
 //
@@ -31,6 +32,7 @@
 namespace {
 
 constexpr int THREADS = 32;
+static_assert(THREADS == frtt_rice::LANES, "one ring column per thread");
 
 __global__ void __launch_bounds__(THREADS)
 rice_group_step_kernel(const uint32_t* __restrict__ words, int64_t n_lanes, int w,
@@ -40,6 +42,7 @@ rice_group_step_kernel(const uint32_t* __restrict__ words, int64_t n_lanes, int 
                        const int32_t* __restrict__ pbits, const int32_t* __restrict__ psm,
                        int j0, int j1, uint32_t* __restrict__ zs) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  __shared__ uint32_t ring[frtt_rice::RING * frtt_rice::LANES];
   if (lane >= n_lanes) return;
   if (!is_rice[lane]) {
     for (int j = j0; j < j1; ++j) zs[j * n_lanes + lane] = 0;
@@ -52,12 +55,17 @@ rice_group_step_kernel(const uint32_t* __restrict__ words, int64_t n_lanes, int 
   const int nc = n_codes[lane];
   const int pbt = frtt_rice::clamp_pbits(pbits[lane]);
   const int mask = psm[lane];
-  frtt_rice::Window win{words + lane * static_cast<int64_t>(w), w, 0, 0, 0, 0};
-  win.init(pos);
-  for (int j = j0; j < j1; ++j) {
-    zs[j * n_lanes + lane] =
-        j < nc ? frtt_rice::decode_code(win, pos, k, err, j, ord, mask, pbt) : 0u;
+  frtt_rice::Reader rd;
+  rd.open(words + lane * static_cast<int64_t>(w), w, ring + threadIdx.x, pos);
+  const int jd = max(j0, min(nc, j1));
+  uint32_t* dst = zs + static_cast<int64_t>(j0) * n_lanes + lane;
+  for (int j = j0; j < jd; ++j, dst += n_lanes) {
+    if (((j - j0) & (frtt_rice::PERIOD - 1)) == 0) rd.top_up();
+    *dst = frtt_rice::decode_code(rd, k, err, j, ord, mask, pbt);
   }
+  rd.close();
+  for (int j = jd; j < j1; ++j, dst += n_lanes) *dst = 0;
+  pos = rd.pos();
   cpos[lane] = pos;
   kc[lane] = k;
   err_io[lane] = err || pos > 32 * w;

@@ -8,19 +8,19 @@
 // window realigned by masked row reductions and staged shifts -- a Mosaic
 // workaround for the lack of per-lane dynamic loads.  On the card a thread
 // can load from its own row, so one thread owns one lane and walks its code
-// chain with three words of the window held in registers (a 96-bit bit
-// buffer refilled by 32-bit loads as the cursor crosses words); the unary
-// quotient is one __clzll of the 64 bits at the cursor (rice_common.cuh).
+// chain with the streaming bit reader of rice_common.cuh.
 //
 // What bounds it: the serial dependency of each lane -- code j+1 starts
-// where code j ends.  A 4096-frame mono chunk is 4096 lanes, about one warp
-// per SM, so the kernel is latency-bound (a load-to-use and ~30 dependent
-// integer operations per code); blocks of one warp spread the lanes over all
-// SMs.  Stores are code-major, zs[j * B + lane], so a warp's 32 lanes write
-// one 128-byte line per code.
+// where code j ends -- and ~4 097 lanes, about one warp per SM, so the
+// kernel is latency-bound.  The reader (rice_common.cuh) takes the loads
+// off the chain -- the window streams through a per-lane ring in shared
+// memory, topped up by cp.async a period ahead -- and decodes the common
+// code in one branch-free block: a clz, two funnel shifts and a refill.
+// Blocks of one warp spread the lanes over all SMs.  Stores are code-major,
+// zs[j * B + lane], so a warp's 32 lanes write one 128-byte row per code.
 //
-// Hostile input: loads are bound-checked (rice_common.cuh), and a cursor
-// that ends past the window sets err.
+// Hostile input: loads are bound-checked (rice_common.cuh), jumps past the
+// buffered bits re-seek, and a cursor that ends past the window sets err.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,6 +30,7 @@
 namespace {
 
 constexpr int THREADS = 32;
+static_assert(THREADS == frtt_rice::LANES, "one ring column per thread");
 
 __global__ void __launch_bounds__(THREADS)
 rice_scan_kernel(const uint32_t* __restrict__ words, int64_t n_lanes, int w,
@@ -39,6 +40,7 @@ rice_scan_kernel(const uint32_t* __restrict__ words, int64_t n_lanes, int w,
                  const int32_t* __restrict__ psm, int n, uint32_t* __restrict__ zs,
                  int32_t* __restrict__ rend, uint8_t* __restrict__ err_out) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  __shared__ uint32_t ring[frtt_rice::RING * frtt_rice::LANES];
   if (lane >= n_lanes) return;
   int pos = rstart[lane];
   bool err = err_in[lane] != 0;
@@ -52,13 +54,18 @@ rice_scan_kernel(const uint32_t* __restrict__ words, int64_t n_lanes, int w,
   const int nc = n_codes[lane];
   const int pbt = frtt_rice::clamp_pbits(pbits[lane]);
   const int mask = psm[lane];
-  frtt_rice::Window win{words + lane * static_cast<int64_t>(w), w, 0, 0, 0, 0};
-  win.init(pos);
+  frtt_rice::Reader rd;
+  rd.open(words + lane * static_cast<int64_t>(w), w, ring + threadIdx.x, pos);
   int k = 0;
-  for (int j = 0; j < n; ++j) {
-    zs[j * n_lanes + lane] =
-        j < nc ? frtt_rice::decode_code(win, pos, k, err, j, ord, mask, pbt) : 0u;
+  const int nd = min(max(nc, 0), n);
+  uint32_t* dst = zs + lane;
+  for (int j = 0; j < nd; ++j, dst += n_lanes) {
+    if ((j & (frtt_rice::PERIOD - 1)) == 0) rd.top_up();
+    *dst = frtt_rice::decode_code(rd, k, err, j, ord, mask, pbt);
   }
+  rd.close();
+  for (int j = nd; j < n; ++j, dst += n_lanes) *dst = 0;
+  pos = rd.pos();
   rend[lane] = pos;
   err_out[lane] = err || pos > 32 * w;
 }

@@ -22,7 +22,11 @@ The zs tensor is a (B, N) view of a code-major (N, B) buffer, the layout
 the kernel writes (a warp's lanes store to adjacent addresses).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-:func:`rice_scan_full_reference`.
+:func:`rice_scan_full_reference`, which reads the 64 bits at the cursor for
+every code.  The kernel streams the window through a 64-bit bit buffer
+instead (``csrc/rice_common.cuh``); :func:`rice_scan_full_mirror` repeats
+that state machine in plain Python so that the CPU tests hold it to the
+plain version and to the JAX kernel.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ import torch
 from .. import _build
 from .bits import M32, clz32, read32, take_bits, word_at, wrap32
 
-__all__ = ["rice_scan_full", "rice_scan_full_reference", "decode_code", "plain_lanes",
-           "LAUNCHES"]
+__all__ = ["rice_scan_full", "rice_scan_full_reference", "rice_scan_full_mirror", "decode_code",
+           "plain_lanes", "LAUNCHES"]
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
@@ -114,6 +118,116 @@ def rice_scan_full_reference(words, rstart, err, is_rice, order, n_codes, pbits,
         zs[j], cpos, k, err = decode_code(w, j, cpos, k, err, is_rice, *lanes)
     err = err | (is_rice & (cpos > 32 * W))
     return wrap32(zs).to(torch.int32).t(), cpos.to(torch.int32), err
+
+
+_M64 = (1 << 64) - 1
+
+
+class _Reader:
+    """The kernels' streaming bit reader (``csrc/rice_common.cuh``) on one
+    lane's window, in Python ints: the left-aligned 64-bit buffer ``buf``
+    holding the ``cnt`` bits at the cursor, refilled a word at a time
+    below 32 bits; ``nw`` is the next word to enter it.  Where the kernel
+    takes that word (its register window, its ring in shared memory or the
+    row) does not change a value."""
+
+    __slots__ = ("row", "buf", "cnt", "nw")
+
+    def __init__(self, row: list, pos: int):
+        self.row = row
+        self.seek(pos)
+
+    def pos(self) -> int:
+        return 32 * self.nw - self.cnt
+
+    def refill(self) -> None:
+        if self.cnt < 32:
+            i = self.nw
+            self.buf |= (self.row[i] if 0 <= i < len(self.row) else 0) << (32 - self.cnt)
+            self.cnt += 32
+            self.nw += 1
+
+    def skip(self, nbits: int) -> None:
+        self.buf = (self.buf << nbits) & _M64
+        self.cnt -= nbits
+        self.refill()
+
+    def seek(self, p: int) -> None:
+        self.nw, self.buf, self.cnt = p >> 5, 0, 0
+        self.refill()
+        self.skip(p & 31)
+
+
+def _take(v32: int, k: int) -> int:
+    return 0 if k <= 0 else (v32 >> 1) >> (31 - min(k, 31))
+
+
+def _mirror_codes(rd: _Reader, k: int, err: bool, j0: int, j1: int, order: int, n_codes: int,
+                  pbits: int, psm: int, out: list) -> tuple:
+    """Codes j0 .. j1-1 of one Rice lane as ``rice_common.cuh``
+    ``decode_code`` takes them from the reader; returns (k, err)."""
+    for j in range(j0, j1):
+        if j >= n_codes:
+            out.append(0)
+            continue
+        boundary = j == 0 or ((order + j) & psm) == 0
+        top = rd.buf >> 32
+        q32 = 32 - top.bit_length()
+        if not boundary and q32 + 1 + k <= 32:  # the common code: one block
+            out.append(((q32 << k) & M32) | ((top >> (31 - q32 - k)) ^ (1 << k)))
+            rd.skip(q32 + 1 + k)
+            continue
+        # the general path: the parameter, then the code from 64 bits
+        if boundary:
+            k = rd.buf >> (64 - pbits) if pbits > 0 else 0
+            err |= k == (1 << pbits) - 1
+            rd.skip(pbits)
+            top = rd.buf >> 32
+            q32 = 32 - top.bit_length()
+        if q32 + 1 + k <= 32:
+            z = ((q32 << k) & M32) | ((top >> (31 - q32 - k)) ^ (1 << k))
+            rd.skip(q32 + 1 + k)
+        else:  # q + 1 + k > 32: err
+            q = 64 - rd.buf.bit_length()
+            err = True
+            qc = min(q, 31)
+            head = 0 if k >= 32 else (qc << k) & M32
+            rd.skip(qc + 1)
+            z = head | _take(rd.buf >> 32, k)
+            if k <= rd.cnt:
+                rd.skip(k)
+            else:
+                rd.seek(rd.pos() + k)
+        out.append(z)
+    return k, err
+
+
+def rice_scan_full_mirror(words, rstart, err, is_rice, order, n_codes, pbits, psm, N: int,
+                          group: int | None = None):
+    """The kernels' reader state machine (buffer, count, refill, re-seek) in
+    plain Python, lane by lane, for the tests only: what
+    :func:`rice_scan_full` returns.  ``group``: re-open the reader at the
+    carried cursor every ``group`` codes, as the group step kernel K9
+    (``csrc/rice_group_step.cu``) does at each launch."""
+    _check(words, rstart, err, is_rice, order, n_codes, pbits, psm, N)
+    B, W = words.shape
+    rows = (words.long() & M32).tolist()
+    lanes = [t.tolist() for t in (rstart, err, is_rice, order, n_codes, pbits.clamp(0, 7), psm)]
+    zs = torch.zeros((B, N), dtype=torch.int64)
+    rend = torch.empty(B, dtype=torch.int64)
+    err_out = torch.empty(B, dtype=torch.bool)
+    step = group or max(N, 1)
+    for b, (pos, e, rice, o, nc, pb, mask) in enumerate(zip(*lanes)):
+        if rice:
+            codes, k = [], 0
+            for j0 in range(0, N, step):
+                rd = _Reader(rows[b], pos)
+                k, e = _mirror_codes(rd, k, e, j0, min(j0 + step, N), o, nc, pb, mask, codes)
+                pos = rd.pos()
+            e |= pos > 32 * W
+            zs[b] = torch.tensor(codes, dtype=torch.int64)
+        rend[b], err_out[b] = pos, e
+    return wrap32(zs).to(torch.int32), rend.to(torch.int32), err_out
 
 
 def rice_scan_full(words, rstart, err, is_rice, order, n_codes, pbits, psm, N: int):

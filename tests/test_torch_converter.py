@@ -92,3 +92,23 @@ def test_unported_modes_raise(dtype, lossless):
     data = np.zeros((1, 8, 512), dtype)
     with pytest.raises(NotImplementedError, match="item 6"):
         RasterFLACConverter(lossless=lossless, device="cpu").encode_array(data)
+
+
+def test_stream_without_a_sample_count_names_its_roadmap_item():
+    """A STREAMINFO whose total-samples field is 0 (as libFLAC writes when
+    it cannot seek back): the JAX package decodes it with its Python frame
+    walk; the port, which has not ported that walk, says which item does."""
+    from flac_raster_tpu.codec.decoder import decode_flac as jax_decode_flac
+    from flac_raster_tpu_torch import decode_flac
+
+    data = _raster(np.uint16, h=16)
+    blob = bytearray(RasterFLACConverter(device="cpu").encode_array(data, compression_level=5))
+    # STREAMINFO body from byte 8: its 36-bit sample count ends at byte 26
+    assert blob[:4] == b"fLaC" and blob[4] & 0x7F == 0
+    blob[21] &= 0xF0
+    blob[22:26] = bytes(4)
+    assert parse_flac_metadata(bytes(blob))[0].total_samples == 0
+    dec = jax_decode_flac(bytes(blob))
+    assert np.array_equal(dec.samples[:, 0], data.reshape(-1).astype(np.int64) - 32768)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 6\(b\)"):
+        decode_flac(bytes(blob))

@@ -505,6 +505,62 @@ def test_restore_kernel_wide_matches_plain(cuda):
     assert not torch.equal(out, restore.restore_reference(zs, order, coefs, shift, warm, n))
 
 
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("B,n", [(33, 64), (33, 4096), (4097, 64), (4097, 4096)])
+def test_restore_kernel_stage_edges(cuda, B, n, wide):
+    """The restore's code ring and unrolled chain at its edges: a block of
+    one 64-code stage and of 64 stages, a warp with one live lane and the
+    4 097 lanes of a chunk, orders 0 and 12 side by side in every warp,
+    shifts -2..33; full int32 taps (narrow) or 16-bit ones (wide)."""
+    rng = np.random.default_rng(B + n + wide)
+    zs = torch.from_numpy(_u32(rng, (B, n))).to(cuda)
+    order = rng.integers(0, 13, B).astype(np.int32)
+    order[::3], order[1::3] = 0, 12
+    coefs = (rng.integers(-(1 << 15), 1 << 15, (B, 12)).astype(np.int32) if wide
+             else _u32(rng, (B, 12)))
+    args = [zs, torch.from_numpy(order).to(cuda), torch.from_numpy(coefs).to(cuda),
+            torch.from_numpy(rng.integers(-2, 34, B).astype(np.int32)).to(cuda),
+            torch.from_numpy(_u32(rng, (B, 12))).to(cuda), n]
+    before = restore.LAUNCHES
+    out = restore.restore(*args, wide=wide)
+    assert restore.LAUNCHES == before + 1
+    ref = restore.restore_reference(*args, wide=wide)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("W,n", [(4096, 64), (4096, 4096), (5, 64), (40, 4096)])
+def test_rice_scan_kernel_reader_edges_match_plain(cuda, W, n):
+    """K8's streaming reader on windows wider than its queue, on rows that
+    are not 16-byte aligned (W = 5), and on the hostile lanes of
+    ``rice_lanes``: k = 127 jumps that re-seek, all-zero windows, escapes,
+    cursors before and past the window, psm = -1.  Then K9 against the new
+    K8 on the same lanes."""
+    from rice_lanes import hostile_lanes
+
+    words, *args = (t.to(cuda) for t in hostile_lanes(W, n, seed=W + n))
+    before = rice_scan.LAUNCHES
+    got = rice_scan.rice_scan_full(words, *args, n)
+    assert rice_scan.LAUNCHES == before + 1
+    ref = rice_scan.rice_scan_full_reference(words, *args, n)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    grouped = rice_group.rice_scan_grouped(words, *args, n)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grouped, got))
+
+
+@pytest.mark.parametrize("bps", [16, 32])
+def test_rice_scan_kernel_valid_lanes_match_plain(cuda, bps):
+    """K8 on every lane of a valid level-5 stream: no err, equal to plain."""
+    words, args, _ = _stream_lanes(cuda, bps)
+    got = rice_scan.rice_scan_full(words, *args, 4096)
+    ref = rice_scan.rice_scan_full_reference(words, *args, 4096)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert not got[2].any()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_wide_raster_on_card_matches_cpu(cuda, dtype):
     """A float raster with a tail frame (NaN, +-inf, -0.0; float64 as two
