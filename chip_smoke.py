@@ -15,8 +15,11 @@ is not 0:
      the shapes the main path gives it (one real level-5 chunk of the
      scene): the Rice cost kernel, and all five pack versions on the
      chunk's sample stream and on a level-8 mid-side chunk's; outputs
-     must be identical; all are timed with CUDA events; a hostile stream
-     must set the windowed versions' err and write nothing past the buffer;
+     must be identical; all are timed with CUDA events, v2 and v5 also
+     three times each in turns by torch.profiler's kernel time and by
+     CUDA events beside the host's enqueue; a hostile stream must set the windowed
+     versions' err and write nothing past the buffer, and a shuffled copy
+     of the level-5 stream must pack as plain through v1 and v5;
   3. the main path: ``RasterFLACConverter(device="cuda").encode_array`` of
      the synthetic 8192x8192 uint16 scene at level 5, once to warm up and
      once timed, with launch counts;
@@ -49,8 +52,12 @@ is not 0:
      the file's chunk of 3 165 frames.
 
 Phase 6 also holds the group step K9 against its plain version (one step)
-and the grouped scan against the chain scan (the whole chunk).  Phases 2,
-6 and 11 log each kernel's time as a share of its bound.
+and the grouped scan against the chain scan (the whole chunk), and times
+the step with its host dispatch (CUDA events around one call), the chunk
+(CUDA events) and the host's enqueue of a chunk on all 4 097 lanes, and
+the step on the device (torch.profiler's kernel time) and the chunk on the
+file's 4 096 lanes.  Phases 2, 6 and 11 log each kernel's time
+as a share of its bound.
 
 Every driven path runs with every launch count set to 0 just before it
 and read just after; a path's kernels must have launched, and every
@@ -160,6 +167,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def events_and_host_ms(fn, iters: int) -> tuple[float, float]:
+    """(CUDA-event time, the host's time to enqueue) of one fn() in ms, the
+    mean over iters runs back to back after one warm-up: where the host
+    enqueues slower than the card runs, the event time is the host's."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host * 1e3 / iters
 
 
 def cuda_once(fn):
@@ -319,13 +345,35 @@ def pack_versions(samples, hdr, n_words: int, N: int, label: str) -> dict:
         "(tolerance 0); " + ", ".join(f"{v} {res[v][0]:.4f} ms ({share(res['bound'], res[v][0])})"
                                       for v in pack.VERSIONS)
         + f", plain {res['plain']:.4f} ms, bound {res['bound']}")
+    # the encoder's sample pack against v5, three timings each in turns by
+    # two clocks: the profiler's kernel time over 20 launches (no host in
+    # it), and CUDA events around 100 launches beside the host's time to
+    # enqueue them (a call's Python dispatch is near these kernels' time)
+    buf = hdr.clone()
+    res["turns"] = {"v2": [], "v5": []}
+    events = {"v2": [], "v5": []}
+    for v in ("v2", "v5", "v5", "v2", "v2", "v5"):
+        def call():
+            pack.pack_tokens(sv, sl, so, n_words, out=buf, version=v, slots_per_group=N, err=err)
+
+        res["turns"][v].append(profiled_kernel_ms(lambda: [call() for _ in range(20)],
+                                                  f"pack_{v}_kernel"))
+        events[v].append(events_and_host_ms(call, 100))
+    res["turns_events"] = {v: [e for e, _ in ts] for v, ts in events.items()}
+    res["turns_host"] = {v: [h for _, h in ts] for v, ts in events.items()}
+    log(f"  v2 and v5 in turns, {label}, ms a call: " + "; ".join(
+        f"{v} profiler kernel time "
+        f"{', '.join('not measured' if t is None else f'{t:.4f}' for t in res['turns'][v])}, "
+        f"events {', '.join(f'{e:.4f}' for e, _ in ts)}, host enqueue "
+        f"{', '.join(f'{h:.4f}' for _, h in ts)}" for v, ts in events.items()))
     return res
 
 
-def hostile_pack(samples, n_words: int, N: int) -> None:
+def hostile_pack(samples, n_words: int, N: int) -> float:
     """A sample stream with a 200 000-bit jump mid-tile: v2-v4 must set
     err (as the plain check does), v1/v5 must still equal plain, and no
-    version may write past n_words."""
+    version may write past n_words.  Then a shuffled copy of the stream
+    through v1 and v5; returns v5's time on it."""
     import torch
 
     from flac_raster_tpu_torch.ops import pack
@@ -349,8 +397,23 @@ def hostile_pack(samples, n_words: int, N: int) -> None:
             raise AssertionError(f"pack {v}: err {int(err)}, plain check {expect[v]}")
         if v not in pack.WINDOWED and not torch.equal(buf[:n2], ref):
             raise AssertionError(f"pack {v} differs from plain on the hostile stream")
-    log("hostile sample stream: v2-v4 set err as the plain check does, v1/v5 equal plain, "
-        "nothing written past n_words")
+    log("hostile sample stream (for v5 a window-overflow stream: one block spans the "
+        "jump): v2-v4 set err as the plain check does, v1/v5 equal plain, nothing written "
+        "past n_words")
+
+    # a shuffled copy of the stream: every v5 block takes the direct route
+    perm = torch.randperm(so.numel(), generator=torch.Generator().manual_seed(5)).to(so.device)
+    sv, sl, so = sv[perm], sl[perm], samples[2][perm]
+    ref = pack.pack_tokens_reference(sv, sl, so, n_words)
+    for v in ("v1", "v5"):
+        got = pack.pack_tokens(sv, sl, so, n_words, version=v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"pack {v} differs from plain on the shuffled stream")
+    buf = torch.zeros(n_words, dtype=torch.int32, device=sv.device)
+    ms = cuda_ms(lambda: pack.pack_tokens(sv, sl, so, n_words, out=buf, version="v5"), iters=10)
+    log(f"shuffled sample stream: v1 and v5 equal plain; v5 {ms:.4f} ms (direct route)")
+    return ms
 
 
 def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
@@ -416,7 +479,7 @@ def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
     hdr = pack.pack_tokens(*tok["header"], n_words)
     l5 = pack_versions(tok["samples"], hdr, n_words, N, "level-5")
     l5_lib = index_add_ms(tok["samples"], n_words)
-    hostile_pack(tok["samples"], n_words, N)
+    v5_shuffled_ms = hostile_pack(tok["samples"], n_words, N)
     del plan, tok, hdr, lpc, blocks, x
 
     # one level-8 mid-side chunk of the stereo scene
@@ -440,7 +503,16 @@ def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
         out.append(kernel_entry(
             PACK_NAMES[v], PACK_SOURCES[v], f"flac_raster_tpu/ops/pallas_pack.py:{PACK_REPLACES[v]}",
             max(l5[v][1], l8[v][1]), l5[v][0], l5["plain"], l5["bound"], l5_lib,
-            ms_l8_midside=l8[v][0], plain_ms_l8_midside=l8["plain"]))
+            ms_l8_midside=l8[v][0], plain_ms_l8_midside=l8["plain"],
+            bound_ms_l8_midside=l8["bound"]["bound_ms"]))
+        if v in l5["turns"]:
+            out[-1].update(ms_turns=l5["turns"][v], ms_turns_l8_midside=l8["turns"][v],
+                           ms_turns_events=l5["turns_events"][v],
+                           ms_turns_events_l8_midside=l8["turns_events"][v],
+                           ms_turns_host=l5["turns_host"][v],
+                           ms_turns_host_l8_midside=l8["turns_host"][v])
+        if v == "v5":
+            out[-1].update(ms_shuffled=v5_shuffled_ms)
     return out
 
 
@@ -471,11 +543,32 @@ def profile_encode(conv, scene) -> None:
     log(table)
 
 
-def group_step_phase(words, args, N: int, label: str) -> dict:
+def profiled_kernel_ms(fn, kernel: str) -> float | None:
+    """Mean device time in ms of the launches of ``kernel`` in one fn()
+    (torch.profiler's kernel time: no host in it); None where the profiler
+    saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if kernel in e.key and e.device_type.name == "CUDA" and e.count]
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / n / 1e3 if n else None
+
+
+def group_step_phase(words, args, N: int, label: str, file_lanes: int | None = None) -> dict:
     """K9 on one chunk's lanes: one step (the second of the block, from the
     carries the first left) against its plain version, and the whole
     grouped scan against the chain scan kernel K8 -- identical zs, rend and
-    err.  Returns the step's and the chunk's times and bounds."""
+    err.  Then, on all lanes (as timed since the port began): the step with
+    its host dispatch, the chunk and the host's enqueue of a chunk; and on
+    the first ``file_lanes`` lanes (the file's, the main path's shape; all
+    by default): the step's device time and the chunk.  Returns the times
+    and bounds."""
     import torch
 
     from flac_raster_tpu_torch.ops import rice_group, rice_scan
@@ -493,8 +586,15 @@ def group_step_phase(words, args, N: int, label: str) -> dict:
     if not (all(torch.equal(a, b) for a, b in zip(mine, ref)) and torch.equal(zs_k, zs_p)):
         raise AssertionError(f"rice_group_step differs from its plain version on the {label} chunk")
     step_err = int(((zs_k.long() & M32) - (zs_p.long() & M32)).abs().max())
+    full = rice_scan.rice_scan_full(words, *args, N)
+    grouped = rice_group.rice_scan_grouped(words, *args, N)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grouped, full)):
+        raise AssertionError(f"the grouped scan differs from rice_scan_full on the {label} chunk")
 
-    # one step timed alone: the carries are reset outside the events
+    # one step timed alone with events around the Python call (so the
+    # host's dispatch of the step is inside the window): the carries are
+    # reset outside the events
     iters, total = 20, 0.0
     for i in range(iters + 2):
         for c, v in zip(mine, c0):
@@ -506,28 +606,62 @@ def group_step_phase(words, args, N: int, label: str) -> dict:
         torch.cuda.synchronize()
         total += start.elapsed_time(end) if i >= 2 else 0.0
     step_ms = total / iters
-
-    full = rice_scan.rice_scan_full(words, *args, N)
-    grouped = rice_group.rice_scan_grouped(words, *args, N)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(grouped, full)):
-        raise AssertionError(f"the grouped scan differs from rice_scan_full on the {label} chunk")
     chunk_ms = cuda_ms(lambda: rice_group.rice_scan_grouped(words, *args, N), iters=5, warmup=1)
+    # the host's time to enqueue a chunk (no sync inside the window)
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rice_group.rice_scan_grouped(words, *args, N)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    enqueue_ms = sum(enqueue) / len(enqueue)
+
+    F = file_lanes or B
+    fw, fa = words[:F], [a[:F] for a in args]
+
+    # a step's device time with no host in it: the profiler's kernel time
+    # of a chunk's steps launched one by one (no dependent launch, so no
+    # step's time holds a wait on the step before)
+    def one_by_one():
+        c = [fa[0].clone(), torch.zeros_like(fa[0]), fa[1].clone()]
+        zs = torch.empty((N, F), dtype=torch.int32, device=words.device)
+        for j0 in range(0, N, g):
+            rice_group.rice_group_step(fw, *c, *fa[2:], zs, j0)
+
+    step_dev_ms = profiled_kernel_ms(one_by_one, "rice_group_step_kernel")
+    chunk_file_ms = (chunk_ms if F == B else
+                     cuda_ms(lambda: rice_group.rice_scan_grouped(fw, *fa, N), iters=5, warmup=1))
+
     # the step's bits, the lane constants and carries and its rows of zs;
     # ~16 integer operations per code it decodes (as K8's bound)
     active = rest[0] & ~c0[2]
     codes = int(((rest[2].long() - g).clamp(0, g) * active).sum())
     step_bits = int(((mine[0] - c0[0]).long()).sum())
     step_bound = bound(step_bits / 8 + B * (17 + 2 * 9) + g * B * 4, 16 * codes)
-    all_codes = int((rest[2].long() * active).sum())
-    chunk_bound = bound(words.numel() * 4 + 7 * 4 * B + N * B * 4, 16 * all_codes)
+
+    def chunk_bound(n_lanes):
+        live = args[2][:n_lanes] & ~args[1][:n_lanes]
+        return bound(n_lanes * words.shape[1] * 4 + 7 * 4 * n_lanes + N * n_lanes * 4,
+                     16 * int((args[4][:n_lanes].long() * live).sum()))
+
+    all_bound, file_bound = chunk_bound(B), chunk_bound(F)
+    n_steps = -(-N // g)
+    dev = "not measured" if step_dev_ms is None else (
+        f"{step_dev_ms:.4f} ms ({n_steps} steps {n_steps * step_dev_ms:.4f} ms)")
     log(f"rice_group_step, {label} chunk ({B} lanes): one step identical to plain, the "
-        f"grouped scan ({-(-N // g)} launches) identical to rice_scan_full (tolerance 0); "
-        f"step {step_ms:.4f} ms ({share(step_bound, step_ms)}), plain step {plain_ms:.4f} ms "
-        f"(one call), bound {step_bound}; chunk {chunk_ms:.4f} ms "
-        f"({share(chunk_bound, chunk_ms)}), bound {chunk_bound}")
+        f"grouped scan ({n_steps} launches) identical to rice_scan_full (tolerance 0); on "
+        f"all {B} lanes: step with host dispatch (events) {step_ms:.4f} ms "
+        f"({share(step_bound, step_ms)}), plain step {plain_ms:.4f} ms (one call), bound "
+        f"{step_bound}; chunk {chunk_ms:.4f} ms ({share(all_bound, chunk_ms)}; "
+        f"{chunk_ms / n_steps:.4f} ms a step), host enqueue {enqueue_ms:.4f} ms "
+        f"({', '.join(f'{t:.4f}' for t in enqueue)}), bound {all_bound}; on the {F} file "
+        f"lanes: step on the device (profiler, launched alone) {dev}; chunk "
+        f"{chunk_file_ms:.4f} ms ({share(file_bound, chunk_file_ms)}), bound {file_bound}")
     return {"step_ms": step_ms, "plain_ms": plain_ms, "bound": step_bound, "err": step_err,
-            "chunk_ms": chunk_ms, "chunk_bound": chunk_bound}
+            "chunk_ms": chunk_ms, "chunk_bound": all_bound, "enqueue_ms": enqueue_ms,
+            "step_dev_ms": step_dev_ms, "chunk_file_ms": chunk_file_ms,
+            "chunk_file_bound": file_bound}
 
 
 def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
@@ -602,7 +736,7 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         f"err={bool(err_k[-1])}; kernel {b_ms:.4f} ms on the {F} file lanes "
         f"({share(b_bound, b_ms)}), {b_ms_hostile:.4f} ms with the hostile lane, plain "
         f"{b_plain_ms:.4f} ms (one call), bound {b_bound}")
-    k9 = group_step_phase(words_b, scan_args, N, "level-5")
+    k9 = group_step_phase(words_b, scan_args, N, "level-5", file_lanes=F)
 
     # the hostile lane restores with 16-bit coefficients: int32 wraparound
     coefs = torch.cat([h["coefs"], torch.from_numpy(
@@ -630,7 +764,11 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         kernel_entry("rice_group_step", "rice_group_step.cu",
                      "flac_raster_tpu/ops/pallas_rice_scan.py:189", k9["err"], k9["step_ms"],
                      k9["plain_ms"], k9["bound"], ms_chunk=k9["chunk_ms"],
-                     bound_ms_chunk=k9["chunk_bound"]["bound_ms"]),
+                     bound_ms_chunk=k9["chunk_bound"]["bound_ms"],
+                     ms_chunk_enqueue_host=k9["enqueue_ms"],
+                     ms_step_device_file_lanes=k9["step_dev_ms"],
+                     ms_chunk_file_lanes=k9["chunk_file_ms"],
+                     bound_ms_chunk_file_lanes=k9["chunk_file_bound"]["bound_ms"]),
         kernel_entry("restore", "restore.cu", "flac_raster_tpu/ops/device_decode.py:562",
                      rest_err, c_ms, c_plain_ms, c_bound),
     ]
@@ -917,6 +1055,8 @@ def main() -> int:
             k.update(ms_step_wide=wide["k9"]["step_ms"], plain_ms_wide=wide["k9"]["plain_ms"],
                      bound_ms_wide=wide["k9"]["bound"]["bound_ms"],
                      ms_chunk_wide=wide["k9"]["chunk_ms"],
+                     ms_step_device_wide=wide["k9"]["step_dev_ms"],
+                     ms_chunk_enqueue_host_wide=wide["k9"]["enqueue_ms"],
                      bound_ms_chunk_wide=wide["k9"]["chunk_bound"]["bound_ms"])
             k["max_abs_err"] = max(k["max_abs_err"], wide["k9"]["err"])
         elif k["name"] == "restore":

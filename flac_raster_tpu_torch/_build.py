@@ -134,6 +134,9 @@ def kernels():
     lib.frtt_rice_group_step.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                          i32, vp, vp]
     lib.frtt_rice_group_step.restype = ctypes.c_int
+    lib.frtt_rice_group_scan.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                         i32, vp, vp]
+    lib.frtt_rice_group_scan.restype = ctypes.c_int
     lib.frtt_restore.argtypes = [vp, i64, i32, vp, vp, vp, vp, i32, vp, vp]
     lib.frtt_restore.restype = ctypes.c_int
     lib.frtt_error_string.argtypes = [ctypes.c_int]

@@ -54,10 +54,12 @@ __all__ = [
     "SAMPLE_PACK_VERSION",
 ]
 
-# the pack kernel that takes the sample stream: v2, the fastest of the five
-# on an H100 (chip_smoke.py phase 2, numbers in PERF.md), needs the stream's
-# order and pitch, which the layout below gives; a violation sets err
-SAMPLE_PACK_VERSION = "v2"
+# the pack kernel that takes the sample stream: v5, the fastest of the five
+# on an H100 (chip_smoke.py phase 2 times v2 and v5 in turns; numbers in
+# PERF.md); it needs no order, so err stays 0.  A windowed version (v2-v4)
+# here needs the stream's order and pitch, which the layout below gives,
+# and flags a violation in err
+SAMPLE_PACK_VERSION = "v5"
 
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
 _UTF8_PREFIX = np.array([0x00, 0xC0, 0xE0, 0xF0, 0xF8, 0xFC], np.int64)
@@ -316,8 +318,8 @@ def emit_plan(x: torch.Tensor, plan: dict, frame0: int, *, n_words: int | None =
     """Emit one planned chunk: both token streams packed into one buffer.
 
     The header stream has no order, so it takes the v1 pack; the sample
-    stream takes ``SAMPLE_PACK_VERSION``, whose precondition violations
-    land in ``err``.
+    stream takes ``SAMPLE_PACK_VERSION``; a windowed version's precondition
+    violations land in ``err``.
 
     Returns dict: words (n_words,) int32 (uint32 bits, bit 31 first),
     frame_bits (F,), total_bits (), subframe_bits (F, C) -- int64 -- and

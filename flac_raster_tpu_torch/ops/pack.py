@@ -18,8 +18,11 @@ gives the same words (:func:`pack_tokens_reference`):
     product on the tensor cores (``mma.sync`` m16n8k32, u8), run only on
     the 16-word tiles the tokens reach; :func:`pack_v4_mirror` repeats its
     arithmetic and fragment layout in plain PyTorch for the tests.
-  * ``v5`` (``csrc/pack_v5.cu``, K7): one thread per token, warp-aggregated
-    OR, one ``atomicOr`` per distinct word per warp.
+  * ``v5`` (``csrc/pack_v5.cu``, K7): eight tokens per thread, OR'd on
+    chip through a shared-memory window of the block's words, one
+    ``atomicOr`` per word it touched; a block whose words do not fit the
+    window ORs straight into the buffer.  Needs no order, as v1;
+    :func:`pack_v5_mirror` repeats its routes in plain PyTorch.
 
 v2-v4 hold their windows on a precondition that the sample stream of
 ``device_emit`` meets (the JAX package's, ``pallas_pack.py:378-383``):
@@ -42,8 +45,8 @@ import torch
 from .. import _build
 
 __all__ = [
-    "pack_tokens", "pack_tokens_reference", "pack_v4_mirror", "window_err_reference", "LAUNCHES",
-    "VERSIONS",
+    "pack_tokens", "pack_tokens_reference", "pack_v4_mirror", "pack_v5_mirror",
+    "window_err_reference", "LAUNCHES", "VERSIONS",
 ]
 
 VERSIONS = ("v1", "v2", "v3", "v4", "v5")
@@ -57,6 +60,10 @@ TILE_TOKENS = 4096       # v3: tokens per block
 MAX_PITCH_BITS = 32      # start-to-start pitch bound of the sample stream
 GAP_BITS = 1024          # one larger gap per group of slots_per_group tokens
 _SMEM_WORDS = 12288      # 48 KB: v3's window without an opt-in attribute
+V5_THREADS = 256         # v5: threads per block
+V5_PER_THREAD = 8        # v5: consecutive tokens per thread
+V5_WINDOW = 4096         # v5: words of the block window
+_INT_MAX = (1 << 31) - 1
 _M32 = 0xFFFFFFFF
 
 
@@ -203,6 +210,63 @@ def pack_v4_mirror(vals, lens, offs, n_words: int, out=None):
     idx = base[:, None, None] + 16 * tiles + g + 8 * (tq == 1)          # (S, 8, 32)
     write = flush[:, :, None] & (tq < 2)
     return _or_into(out, n_words, idx[write], word[write]), bool(bad.any())
+
+
+def pack_v5_mirror(vals, lens, offs, n_words: int, out=None):
+    """K7's routes in plain PyTorch (for the tests only); returns (words,
+    the number of blocks that took the direct route).
+
+    Blocks of V5_THREADS x V5_PER_THREAD tokens, each thread's tokens
+    consecutive.  A token with a non-zero contribution spans its word and
+    the next; a word outside [0, 2^31 - 2) counts as the int range's far
+    end.  A block whose span from its lowest word is at most V5_WINDOW
+    words ORs into a window based there and flushes its non-zero words; any
+    other block ORs its runs into the buffer directly.  A thread's run
+    holds the bits for word ``cur`` and ``cur + 1`` and is written out when
+    a token starts on another word, as pack_v5.cu does.
+    """
+    vals, lens, offs, out = _prepare(vals, lens, offs, n_words, out)
+    n = offs.numel()
+    per_block = V5_THREADS * V5_PER_THREAD
+    nb = -(-n // per_block)
+    pad = nb * per_block - n
+    w0, c0, c1, _ = (torch.nn.functional.pad(x, (0, pad)).view(nb, V5_THREADS, V5_PER_THREAD)
+                     for x in _contributions(vals, lens, offs))
+    nz = (c0 | c1) != 0
+    tame = (w0 >= 0) & (w0 < _INT_MAX - 1)
+    lo = torch.where(nz, torch.where(tame, w0, -_INT_MAX - 1), _INT_MAX).amin((1, 2))
+    hi = torch.where(nz, torch.where(tame, w0 + 1, _INT_MAX), -_INT_MAX - 1).amax((1, 2))
+    fits = (hi >= lo) & (hi - lo + 1 <= V5_WINDOW)
+
+    no_word = -(1 << 62)
+    cur = torch.full((nb, V5_THREADS), no_word, dtype=torch.int64)
+    a0, a1 = torch.zeros_like(cur), torch.zeros_like(cur)
+    puts = []
+    for i in range(V5_PER_THREAD):
+        w, x0, x1, live = w0[..., i], c0[..., i], c1[..., i], nz[..., i]
+        same = live & (w == cur)
+        nxt = live & ~same & (w == cur + 1)
+        jump = live & ~same & ~nxt
+        puts += [(cur, torch.where(nxt | jump, a0, 0)), (cur + 1, torch.where(jump, a1, 0))]
+        a0 = torch.where(same, a0 | x0, torch.where(nxt, a1 | x0, torch.where(jump, x0, a0)))
+        a1 = torch.where(same, a1 | x1, torch.where(live, x1, a1))
+        cur = torch.where(nxt | jump, w, cur)
+    puts += [(cur, a0), (cur + 1, a1)]
+    idx = torch.stack([p[0] for p in puts], -1).flatten(1)
+    val = torch.stack([p[1] for p in puts], -1).flatten(1)
+
+    direct = ~fits[:, None] & (val != 0)
+    _or_into(out, n_words, idx[direct], val[direct])
+    into = fits[:, None] & (val != 0)
+    rel = idx - lo[:, None]
+    if bool(((rel < 0) | (rel >= V5_WINDOW))[into].any()):
+        raise AssertionError("a run of a fitting block fell outside its window")
+    win = torch.zeros((nb, V5_WINDOW), dtype=torch.int64)
+    win.scatter_add_(1, torch.where(into, rel, 0), torch.where(into, val, 0))
+    flush = fits[:, None] & (win != 0)
+    widx = lo[:, None] + torch.arange(V5_WINDOW)
+    _or_into(out, n_words, widx[flush], win[flush])
+    return out, int((~fits & nz.any((1, 2))).sum())
 
 
 def window_err_reference(lens, offs, version: str, slots_per_group: int = 4096) -> bool:

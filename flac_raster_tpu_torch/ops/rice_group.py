@@ -13,8 +13,11 @@ flag, exactly as the chain scan (``ops/rice_scan``) decodes them:
                                               layout, which ``restore`` reads)
 
 A cursor past the lane's window after the step sets err.
-:func:`rice_scan_grouped` loops the step over a block and returns what
+:func:`rice_scan_grouped` runs the step over a block and returns what
 ``rice_scan.rice_scan_full`` returns, so either engine feeds ``restore``.
+It launches one kernel per ``group`` codes (75 per 4096-sample
+block), all enqueued from one C call (``frtt_rice_group_scan``), the steps
+after the first as programmatic dependent launches.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 :func:`rice_group_step_reference`, whose per-code arithmetic is the chain
@@ -97,10 +100,33 @@ def rice_group_step(words, cpos, k, err, is_rice, order, n_codes, pbits, psm, zs
 def rice_scan_grouped(words, rstart, err, is_rice, order, n_codes, pbits, psm, N: int,
                       group: int = GROUP):
     """The chain scan by ceil(N / group) group steps: (zs (B, N) int32,
-    rend (B,) int32, err (B,) bool), as ``rice_scan.rice_scan_full``."""
+    rend (B,) int32, err (B,) bool), as ``rice_scan.rice_scan_full``.
+
+    The inputs are checked once, before any step.  On the card one C call
+    (``frtt_rice_group_scan``) enqueues every step, the steps after the
+    first as dependent launches; on the CPU the plain step runs per group."""
+    _check(words, rstart, err, is_rice, order, n_codes, pbits, psm, N)
+    if group < 1:
+        raise ValueError(f"group={group} < 1")
     B = words.shape[0]
     zs = torch.empty((N, B), dtype=torch.int32, device=words.device)
     cpos, k, err = rstart.clone(), torch.zeros_like(rstart), err.clone()
-    for j0 in range(0, N, group):
-        rice_group_step(words, cpos, k, err, is_rice, order, n_codes, pbits, psm, zs, j0, group)
+    if words.device.type == "cpu":
+        for j0 in range(0, N, group):
+            rice_group_step_reference(words, cpos, k, err, is_rice, order, n_codes, pbits, psm,
+                                      zs, j0, group)
+        return zs.t(), cpos, err
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    if B == 0 or N == 0:
+        return zs.t(), cpos, err
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    rc = _build.kernels().frtt_rice_group_scan(
+        words.data_ptr(), B, words.shape[1], cpos.data_ptr(), k.data_ptr(), err.data_ptr(),
+        is_rice.data_ptr(), order.data_ptr(), n_codes.data_ptr(), pbits.data_ptr(),
+        psm.data_ptr(), N, min(group, N), zs.data_ptr(), stream,
+    )
+    _build.check(rc, "rice_scan_grouped")
+    global LAUNCHES
+    LAUNCHES += -(-N // group)
     return zs.t(), cpos, err

@@ -586,3 +586,90 @@ def test_wide_raster_on_card_matches_cpu(cuda, dtype):
         assert got.device.type == "cuda" and str(got.dtype) == f"torch.{dtype}"
         assert got.cpu().numpy().tobytes() == x.tobytes()
     assert device_decoder.HOST_ROUTES == before
+
+
+def _grouped_lanes(cuda, lanes):
+    """(words, scan args, n): the valid lanes of a 16- or 32-bps stream, or
+    the hostile lanes of ``rice_lanes``."""
+    if lanes == "hostile":
+        from rice_lanes import hostile_lanes
+
+        words, *args = (t.to(cuda) for t in hostile_lanes(40, 512, seed=9))
+        return words, args, 512
+    words, args, _ = _stream_lanes(cuda, 16 if lanes == "narrow" else 32)
+    return words, args, 4096
+
+
+@pytest.mark.parametrize("group", [1, 7, 55, "N"])
+@pytest.mark.parametrize("lanes", ["narrow", "wide", "hostile"])
+def test_rice_grouped_scan_kernel_matches_k8(cuda, lanes, group):
+    """The grouped scan (one C call, dependent launches) equals the chain
+    scan K8 for groups of 1, 7, 55 and the whole block, and counts
+    ceil(n / group) launches."""
+    words, args, n = _grouped_lanes(cuda, lanes)
+    g = n if group == "N" else group
+    full = rice_scan.rice_scan_full(words, *args, n)
+    before = rice_group.LAUNCHES
+    grouped = rice_group.rice_scan_grouped(words, *args, n, group=g)
+    assert rice_group.LAUNCHES == before + -(-n // g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grouped, full))
+    assert bool(full[2].any()) == (lanes == "hostile")
+
+
+@pytest.mark.parametrize("lanes", ["narrow", "hostile"])
+def test_rice_grouped_scan_repeats_identically(cuda, lanes):
+    """20 grouped scans of one stream, enqueued back to back: every one
+    gives the same zs, rend and err (a step that read its carries before
+    the step before it had written them would differ)."""
+    words, args, n = _grouped_lanes(cuda, lanes)
+    runs = [rice_group.rice_scan_grouped(words, *args, n) for _ in range(20)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], rice_scan.rice_scan_full(words, *args,
+                                                                                  n)))
+
+
+@pytest.mark.parametrize("stream", ["shuffled", "window_overflow", "midside_level8"])
+def test_pack_v5_any_order_streams(cuda, stream):
+    """v5 on a shuffled sample-like stream (every block spans the whole
+    stream: the direct route), on one with a jump of 200 000 bits inside a
+    block, and on a level-8 mid-side sample stream (the window route):
+    identical to plain, also into a buffer that holds other words."""
+    if stream == "midside_level8":
+        vals, lens, offs = _midside_level8(cuda)
+    else:
+        toks = _sample_like_stream(np.random.default_rng(17), 3 * 4096 * 16 + 777)
+        if stream == "shuffled":
+            toks = tuple(a[np.random.default_rng(18).permutation(len(a))] for a in toks)
+        else:
+            toks[2][5000:] += 200_000
+        vals, lens, offs = _on(cuda, *toks)
+    n_words = int(offs.max()) // 32 + 3
+    before = pack.LAUNCHES["v5"]
+    out = pack.pack_tokens(vals, lens, offs, n_words, version="v5")
+    assert pack.LAUNCHES["v5"] == before + 1
+    ref = pack.pack_tokens_reference(vals, lens, offs, n_words)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    hdr = torch.zeros(n_words, dtype=torch.int32, device=cuda)
+    hdr[::7] = 0x01010101
+    both = pack.pack_tokens(vals, lens, offs, n_words, out=hdr.clone(), version="v5")
+    assert torch.equal(both, ref | hdr)
+
+
+def test_pack_v5_unaligned_fields_and_buffer(cuda):
+    """Token fields that are not 16-byte aligned (scalar loads) and a word
+    buffer that is not 8-byte aligned, of odd length (32-bit flushes, the
+    last pair cut at n_words): identical to plain."""
+    toks = _sample_like_stream(np.random.default_rng(19), 5 * 2048 + 13)
+    vals, lens, offs = (torch.cat([a[:1], a]) for a in _on(cuda, *toks))
+    vals, lens, offs = vals[1:], lens[1:], offs[1:]
+    n_words = int(offs.max()) // 32 | 1
+    buf = torch.zeros(n_words + 2, dtype=torch.int32, device=cuda)
+    out = pack.pack_tokens(vals, lens, offs, n_words, out=buf[1 : n_words + 1], version="v5")
+    ref = pack.pack_tokens_reference(vals, lens, offs, n_words)
+    torch.cuda.synchronize()
+    assert out.data_ptr() % 8 and vals.data_ptr() % 16
+    assert torch.equal(out, ref) and not buf[0] and not buf[-1]

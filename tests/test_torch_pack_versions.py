@@ -224,3 +224,69 @@ def test_v4_mirror_flags_what_the_plain_check_flags():
     args = [torch.from_numpy(a) for a in (vals.view(np.int32), lens, offs)]
     _, err = pack.pack_v4_mirror(*args, N_WORDS)
     assert err and pack.window_err_reference(args[1], args[2], "v4")
+
+
+def _jax_v5(vals, lens, offs):
+    return np.asarray(jax_pack(
+        jnp.asarray(vals), jnp.asarray(lens), jnp.asarray(offs.astype(np.int32)),
+        n_words=N_WORDS, slots_per_group=N, interpret=True, version="v5"))
+
+
+def _split(vals, lens, offs, at):
+    """Tokens [:at] and [at:] as two streams of NT slots each, the other
+    part's slots dead at the offset of the nearest token kept: each meets
+    the JAX kernel's precondition, so the JAX v5 packs each half."""
+    first, second = lens.copy(), lens.copy()
+    first[at:], second[:at] = 0, 0
+    o1, o2 = offs.copy(), offs.copy()
+    o1[at:], o2[:at] = offs[at - 1], offs[at]
+    return (vals, first, o1), (vals, second, o2)
+
+
+def _v5_case(name):
+    """(vals, lens, offs, n_words, header words or None, the JAX v5's words
+    for the same tokens, whether a block must take the direct route)."""
+    if name in V4_STREAMS:
+        vals, lens, offs = V4_STREAMS[name]()
+        return vals, lens, offs, N_WORDS, None, _jax_v5(vals, lens, offs), False
+    vals, lens, offs = _random_stream(1)
+    if name == "shuffled":
+        # packing does not depend on order: the JAX v5 packs the sorted stream
+        p = np.random.default_rng(2).permutation(NT)
+        return vals[p], lens[p], offs[p], N_WORDS, None, _jax_v5(vals, lens, offs), True
+    if name == "window_overflow":
+        # a 200 000-bit jump inside the second block of 2 048 tokens
+        offs = offs.copy()
+        offs[3000:] += 200_000
+        a, b = _split(vals, lens, offs, 3000)
+        return vals, lens, offs, N_WORDS, None, _jax_v5(*a) | _jax_v5(*b), True
+    if name == "past_n_words":
+        n_words = int(offs[NT // 2]) // 32
+        return vals, lens, offs, n_words, None, _jax_v5(vals, lens, offs)[:n_words], False
+    # header_buffer: the odd tokens already packed into the buffer, as the
+    # emitter's header stream is before the sample stream is OR'd in
+    odd = lens.copy()
+    odd[::2] = 0
+    hdr = pack.pack_tokens_reference(*(torch.from_numpy(a) for a in
+                                       (vals.view(np.int32), odd, offs)), N_WORDS)
+    even = lens.copy()
+    even[1::2] = 0
+    return vals, even, offs, N_WORDS, hdr, _jax_v5(vals, lens, offs), False
+
+
+@pytest.mark.parametrize("name", [*V4_STREAMS, "shuffled", "window_overflow", "past_n_words",
+                                  "header_buffer"])
+def test_v5_mirror_equals_plain_and_jax(name):
+    """v5's block window, its runs and its direct route: sample-like,
+    dense one-bit, max-pitch and mid-side streams (every block fits its
+    window), a shuffled stream and one with a jump inside a block (blocks
+    take the direct route), tokens past n_words, and a buffer that already
+    holds the header words."""
+    vals, lens, offs, n_words, hdr, jax_words, direct = _v5_case(name)
+    args = [torch.from_numpy(a) for a in (vals.view(np.int32), lens, offs)]
+    out = None if hdr is None else hdr.clone()
+    got, n_direct = pack.pack_v5_mirror(*args, n_words, out=out)
+    assert (n_direct > 0) == direct, n_direct
+    out = None if hdr is None else hdr.clone()
+    assert torch.equal(got, pack.pack_tokens_reference(*args, n_words, out=out))
+    assert np.array_equal(got.numpy().view(np.uint32), jax_words)

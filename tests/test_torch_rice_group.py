@@ -161,3 +161,31 @@ def test_group_step_wrapper_takes_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError):
         rice_group.rice_group_step(torch.zeros((1, 4), dtype=torch.int32, device="meta"),
                                    one, one, no, no, one, one, one, one, zs, 0, 2)
+
+
+def _bad(arg):
+    """Small valid scan inputs with one made bad."""
+    one = torch.ones(2, dtype=torch.int32)
+    args = dict(words=torch.zeros((2, 4), dtype=torch.int32), rstart=one.clone(),
+                err=torch.zeros(2, dtype=torch.bool), is_rice=torch.ones(2, dtype=torch.bool),
+                order=one, n_codes=one, pbits=one, psm=one, N=4, group=2)
+    args[arg] = {"words": torch.zeros(8, dtype=torch.int32), "rstart": one.long(),
+                 "err": one, "is_rice": torch.ones(3, dtype=torch.bool),
+                 "N": -1, "group": 0}[arg]
+    return args
+
+
+@pytest.mark.parametrize("arg", ["words", "rstart", "err", "is_rice", "N", "group"])
+def test_grouped_scan_checks_its_inputs_before_any_step(arg):
+    """A bad window buffer, carry, lane constant, block length or group
+    raises before any step runs, and no launch is counted."""
+    before = rice_group.LAUNCHES
+    args = _bad(arg)
+    with pytest.raises(ValueError):
+        rice_group.rice_scan_grouped(**args)
+    assert rice_group.LAUNCHES == before
+    good = _bad("group")
+    good["group"] = 3
+    zs, rend, err = rice_group.rice_scan_grouped(**good)
+    assert rice_group.LAUNCHES == before  # the plain steps on the CPU launch nothing
+    assert zs.shape == (2, 4) and rend.dtype == torch.int32 and err.dtype == torch.bool
