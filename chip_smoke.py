@@ -49,9 +49,28 @@ is not 0:
      trip bit for bit on the host and on the card with each Rice engine
      (the chain scan K8 and the group step K9), size envelope; then the
      Rice engines and the wide restore against their plain versions on
-     the file's chunk of 3 165 frames.
+     the file's chunk of 3 165 frames;
+ 12. the minmax mode (``lossless=False``): the 8192x8192 uint16 scene
+     (16 bps, the narrow lane) and the DEM with its infinities set to 0
+     (the reference's "24-bit" samples at 32 bps, the wide lane, NaN -> 0):
+     timed encode, timed decode on the card on the device route, the
+     card's raster equal to ``decode_bytes``' bit for bit, the largest
+     error against the input, size envelope against the JAX package's
+     minmax frames;
+ 13. the device-resident encode: ``encode_array_device`` of the scene and
+     the DEM as tensors already on the card: timed, bytes equal to
+     ``encode_array`` of the host copy, and with ``compute_md5=True`` the
+     host's MD5;
+ 14. files as the reference system writes them (minmax, no layout index, a
+     STREAMINFO sample count of 0; metadata in a JSON sidecar or in the
+     comments): ``decode_bytes_device`` takes the visible host route (the
+     Python frame walk), inverts on the card and equals ``decode_bytes``.
 
-Phase 6 also holds the group step K9 against its plain version (one step)
+Phase 6 holds the window gather on every ``word0 & 3``, on windows before
+the body and past it, and on body views 4, 8 and 12 bytes past a 16-byte
+boundary, and times it through its wrapper (CUDA events), on the device
+(torch.profiler's kernel time, warm and after an L2 flush) and beside a
+contiguous copy of as many bytes.  It also holds the group step K9 against its plain version (one step)
 and the grouped scan against the chain scan (the whole chunk), and times
 the step with its host dispatch (CUDA events around one call), the chunk
 (CUDA events) and the host's enqueue of a chunk on all 4 097 lanes, and
@@ -100,6 +119,11 @@ JAX_STEREO_FRAME_BYTES = 100459308
 # at commit f95eb55.
 DEM_SIZE = 3601
 JAX_DEM_FRAME_BYTES = 28182137
+# The minmax mode (phase 12) at level 5: make_raster(8192) as 16-bit PCM and
+# make_minmax_dem(3601) as "24-bit" samples at 32 bps, from
+# tools/jax_minmax_sizes.py (the JAX package's device encoder on the CPU).
+JAX_MINMAX_FRAME_BYTES = 65592656
+JAX_MINMAX_DEM_FRAME_BYTES = 25113267
 SIZE_ENVELOPE = 1.0025
 
 
@@ -132,6 +156,14 @@ def make_dem(size: int) -> np.ndarray:
     return dem
 
 
+def make_minmax_dem(size: int) -> np.ndarray:
+    """make_dem(size) with its +inf and -inf set to 0: an infinite value
+    would make the minmax range infinite and every sample 0."""
+    dem = make_dem(size)
+    dem[np.isinf(dem)] = 0.0
+    return dem
+
+
 def make_stereo(size: int) -> np.ndarray:
     """Two correlated uint16 bands (2, size, size): band 0 is
     make_raster(size), band 1 = clip(0.9 * band 0 + 1500 + N(0, 8))."""
@@ -139,6 +171,41 @@ def make_stereo(size: int) -> np.ndarray:
     rng = np.random.default_rng(7)
     band1 = 0.9 * band0 + 1500.0 + rng.normal(0, 8.0, band0.shape)
     return np.stack([band0, np.clip(band1, 0, 65535).astype(np.uint16)])
+
+
+def reference_file(raster: np.ndarray, level: int, device, sidecar: bool = False):
+    """A file as the reference system writes one, from a (bands, h, w)
+    raster: minmax PCM (16 bps for 8- and 16-bit dtypes, else its "24-bit"
+    samples at 32 bps), GEOSPATIAL comments without normalization
+    parameters -- or, with ``sidecar``, no such comments and the metadata
+    as a JSON sidecar -- no layout index, and a STREAMINFO sample count of
+    0, as libFLAC writes when it cannot seek back.  Returns (bytes, the
+    sidecar dict or None)."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.models.flac_format import (
+        StreamInfo, build_flac_header, parse_flac_metadata,
+    )
+    from flac_raster_tpu_torch.models.metadata import build_geospatial_comments
+    from flac_raster_tpu_torch.ops.normalization import calculate_audio_params, normalize_to_audio
+
+    count, height, width = raster.shape
+    sample_rate, ref_bps = calculate_audio_params(raster, raster.dtype)
+    audio, params = normalize_to_audio(raster.transpose(1, 2, 0).reshape(-1, count), ref_bps)
+    bps = 16 if ref_bps == 16 else 32
+    blob = encode_flac_device(audio.astype(np.int32), sample_rate, bps,
+                              compression_level=level, compute_md5=False, device=device)
+    si, _, frame_start = parse_flac_metadata(blob)
+    fields = dict(crs="EPSG:4326", width=width, height=height, count=count,
+                  dtype=str(raster.dtype), nodata=None, data_min=params.data_min,
+                  data_max=params.data_max, transform=[1.0, 0.0, 0.0, 0.0, -1.0, 0.0],
+                  bounds=[0.0, -float(height), float(width), 0.0])
+    comments = {} if sidecar else build_geospatial_comments(**fields)
+    si = StreamInfo(min_blocksize=si.min_blocksize, max_blocksize=si.max_blocksize,
+                    min_framesize=si.min_framesize, max_framesize=si.max_framesize,
+                    sample_rate=si.sample_rate, channels=si.channels,
+                    bits_per_sample=si.bits_per_sample, total_samples=0)
+    header = build_flac_header(si, comments, vendor="reference libFLAC")
+    return bytes(header) + blob[frame_start:], fields if sidecar else None
 
 
 def log(msg: str) -> None:
@@ -688,16 +755,53 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         raise AssertionError("gather_windows differs from its plain version")
     if win_k[-1, W - W // 2 :].any():
         raise AssertionError("gather_windows read past the body")
+    # every word0 & 3, windows before 0 and past R, and the same windows
+    # from a body view whose base lies 4, 8 or 12 bytes past a 16-byte line
+    offsets = np.bincount(word0.cpu().numpy() & 3, minlength=4)
+    if not offsets.all():
+        raise AssertionError(f"the chunk lacks a word0 & 3 offset: {offsets}")
+    edges = torch.tensor([s + d for s in range(4) for d in (-1 - s, -(W // 2), body.numel() - 3)],
+                         device=dev)
+    for view in range(4):
+        w0 = torch.cat([word0, edges]) - view
+        got = gather.gather_windows(body[view:], w0, W)
+        if not torch.equal(got, gather.gather_windows_reference(body[view:], w0, W)):
+            raise AssertionError(f"gather_windows differs from plain on a body view at +{view}")
     a_ms = cuda_ms(lambda: gather.gather_windows(body, word0, W), iters=20)
+    # the kernel alone (no host in it), and the host's enqueue of a call
+    a_dev_ms = profiled_kernel_ms(lambda: [gather.gather_windows(body, word0, W)
+                                           for _ in range(20)], "gather_windows_kernel")
+    a_ev_ms, a_host_ms = events_and_host_ms(lambda: gather.gather_windows(body, word0, W), 100)
+    # on the device with the L2 cache (50 MB) flushed before each launch by
+    # a 256 MB write, as the decode finds it after the body's upload
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=dev)
+
+    def cold():
+        for _ in range(20):
+            flush.zero_()
+            gather.gather_windows(body, word0, W)
+
+    a_cold_ms = profiled_kernel_ms(cold, "gather_windows_kernel")
+    del flush
     a_plain_ms = cuda_ms(lambda: gather.gather_windows_reference(body, word0, W), iters=3, warmup=1)
     # the library yardstick: one advanced-indexing read of a zero-padded body
     padded = torch.cat([body, torch.zeros(W, dtype=body.dtype, device=dev)])
     cols = torch.arange(W, device=dev)
     a_lib_ms = cuda_ms(lambda: padded[word0[:, None] + cols], iters=20)
+    # a contiguous copy of as many bytes: what a plain copy takes on the card
+    src, dst = torch.empty_like(win_p[:F]), torch.empty_like(win_p[:F])
+    a_copy_ms = cuda_ms(lambda: dst.copy_(src), iters=20)
     a_bound = bound(2 * word0.numel() * W * 4, 0)       # each window word read and written
-    log(f"gather_windows: identical to plain, zeros past the body (tolerance 0); "
-        f"kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms, index read {a_lib_ms:.4f} ms, "
+    dev_txt = ", ".join("not measured" if t is None else f"{t:.4f} ms ({share(a_bound, t)})"
+                        for t in (a_dev_ms, a_cold_ms))
+    log(f"gather_windows: identical to plain, zeros past the body, word0 & 3 counts "
+        f"{offsets.tolist()} and body views at +1..+3 words (tolerance 0); kernel {a_ms:.4f} ms "
+        f"({share(a_bound, a_ms)}); on the device (profiler) warm and after an L2 flush {dev_txt}; "
+        f"events {a_ev_ms:.4f} "
+        f"ms a call beside a host enqueue of {a_host_ms:.4f} ms; plain {a_plain_ms:.4f} ms, "
+        f"index read {a_lib_ms:.4f} ms, contiguous copy of the same bytes {a_copy_ms:.4f} ms, "
         f"bound {a_bound}")
+    del src, dst
 
     windows = win_k[:F]
     eb = torch.full((F,), si.bits_per_sample, dtype=torch.int64, device=dev)
@@ -757,7 +861,9 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     return [
         kernel_entry("gather_windows", "gather.cu", "flac_raster_tpu/ops/pallas_gather.py:60",
                      int((win_k.long() - win_p.long()).abs().max()), a_ms, a_plain_ms,
-                     a_bound, a_lib_ms),
+                     a_bound, a_lib_ms, ms_device=a_dev_ms, ms_device_l2_flushed=a_cold_ms,
+                     ms_events_100=a_ev_ms,
+                     ms_host_enqueue=a_host_ms, ms_contiguous_copy=a_copy_ms),
         kernel_entry("rice_scan_full", "rice_scan.cu",
                      "flac_raster_tpu/ops/pallas_rice_scan2.py:242", scan_err, b_ms,
                      b_plain_ms, b_bound, ms_with_hostile_lane=b_ms_hostile),
@@ -946,6 +1052,123 @@ def chan_histogram(blob: bytes) -> dict:
     return {names.get(int(c), str(int(c))): int(n) for c, n in zip(*np.unique(codes, return_counts=True))}
 
 
+def minmax_phase(raster: np.ndarray, label: str, jax_frame_bytes: int, card: str, dev,
+                 wide: bool = False) -> None:
+    """Phase 12: the minmax mode (lossy) of one raster: timed encode with
+    launch counts, the host decode, the card's decode on the device route
+    equal to the host's raster bit for bit, the largest error against the
+    input, and the size envelope."""
+    import torch
+
+    from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.codec import device_decoder
+
+    conv = RasterFLACConverter(lossless=False, device="cuda", compute_md5=False)
+    blob = encode_path(conv, raster, LEVEL, f"{label} minmax", card, wide=wide)
+    host, meta = conv.decode_bytes(blob, verify_crc=True)
+    conv.decode_bytes_device(blob)
+    routes = device_decoder.HOST_ROUTES
+    (data, _), dt, launches = run_path(f"the {label} minmax decode",
+                                       lambda: conv.decode_bytes_device(blob),
+                                       DECODE_KERNELS["full"])
+    if device_decoder.HOST_ROUTES != routes:
+        raise AssertionError(f"the {label} minmax decode took the host route")
+    r3 = raster if raster.ndim == 3 else raster[None]
+    if (data.device.type != dev.type or str(data.dtype) != f"torch.{raster.dtype}"
+            or data.shape != r3.shape or host.shape != r3.shape):
+        raise AssertionError(f"decoded raster {data.device} {data.dtype} {tuple(data.shape)}")
+    np_int, torch_int = _INT_VIEWS[raster.itemsize]
+    if not torch.equal(data.view(getattr(torch, torch_int)),
+                       torch.from_numpy(host.view(np_int)).to(dev)):
+        raise AssertionError(f"the {label} minmax raster on the card differs from the host's")
+    finite = np.isfinite(r3)
+    err = float(np.abs(host[finite].astype(np.float64) - r3[finite].astype(np.float64)).max())
+    levels = 65534 if meta["normalization"].bits_per_sample == 16 else 16777214
+    step = (float(np.nanmax(r3)) - float(np.nanmin(r3))) / levels
+    log(f"{label} minmax decode (card, device route): {dt:.3f} s, {raster.nbytes / dt / 1e6:.2f} "
+        f"MB/s raw, equal to the host's raster bit for bit, launches {launches}; largest error "
+        f"against the input {err!r} (one quantisation step {step!r}; NaN -> the range's middle) "
+        f"| {card}")
+    size_envelope(blob, jax_frame_bytes, f"{label} minmax")
+
+
+def device_resident_phase(raster: np.ndarray, label: str, card: str, dev,
+                          wide: bool = False) -> None:
+    """Phase 13: ``encode_array_device`` of a raster already on the card:
+    timed with launch counts, bytes equal to ``encode_array`` of the host
+    copy (MD5 off), and with ``compute_md5=True`` the host's MD5."""
+    import torch
+
+    from flac_raster_tpu_torch import RasterFLACConverter
+
+    conv = RasterFLACConverter(device="cuda", compute_md5=False)
+    want = conv.encode_array(raster, compression_level=LEVEL)
+    signed = {2: (np.int16, torch.uint16), 4: (np.int32, torch.uint32)}
+    if raster.dtype.kind == "u":
+        np_s, t_u = signed[raster.itemsize]
+        tensor = torch.from_numpy(raster.view(np_s)).to(dev).view(t_u)
+    else:
+        tensor = torch.from_numpy(raster).to(dev)
+    conv.encode_array_device(tensor, compression_level=LEVEL)
+    blob, dt, launches = run_path(
+        f"the {label} device-resident encode",
+        lambda: conv.encode_array_device(tensor, compression_level=LEVEL), encode_kernels(wide))
+    if blob != want:
+        raise AssertionError(f"the {label} device-resident encode differs from encode_array")
+    md5_blob, dt_md5, _ = run_path(
+        f"the {label} device-resident encode with its MD5",
+        lambda: conv.encode_array_device(tensor, compression_level=LEVEL, compute_md5=True),
+        encode_kernels(wide))
+    host_md5 = RasterFLACConverter(device="cuda").encode_array(raster, compression_level=LEVEL)
+    if md5_blob[26:42] != host_md5[26:42] or md5_blob[:26] + md5_blob[42:] != blob[:26] + blob[42:]:
+        raise AssertionError(f"the {label} device-resident encode's MD5 differs from the host's")
+    log(f"{label} device-resident encode: {dt:.3f} s, {raster.nbytes / dt / 1e6:.2f} MB/s from "
+        f"the card, bytes equal to encode_array of the host copy, launches {launches}; with the "
+        f"MD5 (a worker thread) {dt_md5:.3f} s, {raster.nbytes / dt_md5 / 1e6:.2f} MB/s, MD5 "
+        f"equal to the host's | {card}")
+
+
+def reference_phase(dev, card: str) -> None:
+    """Phase 14: files as the reference system writes them (minmax, no
+    layout index, a sample count of 0), one with its metadata in a JSON
+    sidecar and one in its comments: ``decode_bytes_device`` takes the
+    visible host route, inverts with ``soundfile_compat`` on the card and
+    equals ``decode_bytes``."""
+    import tempfile
+
+    import torch
+
+    from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.codec import device_decoder
+
+    band = make_raster(1024)
+    rasters = [(np.stack([band, band[::-1]]), True), (make_minmax_dem(601)[None], False)]
+    conv = RasterFLACConverter(device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        for raster, sidecar in rasters:
+            blob, fields = reference_file(raster, LEVEL, dev, sidecar=sidecar)
+            path = None
+            if sidecar:
+                path = f"{tmp}/reference.json"
+                with open(path, "w") as f:
+                    json.dump(fields, f)
+            host, _ = conv.decode_bytes(blob, sidecar_path=path)
+            routes = device_decoder.HOST_ROUTES
+            (data, _), dt, _ = run_path("the reference-like decode",
+                                        lambda: conv.decode_bytes_device(blob, sidecar_path=path),
+                                        [])
+            if device_decoder.HOST_ROUTES != routes + 1:
+                raise AssertionError("the reference-like file did not take the host route")
+            np_int, torch_int = _INT_VIEWS[raster.itemsize]
+            if data.device.type != dev.type or not torch.equal(
+                    data.view(getattr(torch, torch_int)),
+                    torch.from_numpy(host.view(np_int)).to(dev)):
+                raise AssertionError("the reference-like raster on the card differs from the host's")
+            log(f"reference-like {raster.dtype} {raster.shape} file, metadata in "
+                f"{'a JSON sidecar' if sidecar else 'its comments'}, sample count 0: host route, "
+                f"soundfile_compat inverse on the card equal to decode_bytes, {dt:.3f} s | {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1062,6 +1285,27 @@ def main() -> int:
         elif k["name"] == "restore":
             k["max_abs_err"] = max(k["max_abs_err"], wide["restore"].pop("max_abs_err_wide"))
             k.update(wide["restore"])
+
+    del dem, blob
+    torch.cuda.empty_cache()
+
+    log(f"phase 12: the minmax mode, {SCENE_SIZE}x{SCENE_SIZE} uint16 and the "
+        f"{DEM_SIZE}x{DEM_SIZE} float32 DEM at level {LEVEL}")
+    scene = make_raster(SCENE_SIZE)
+    minmax_phase(scene, "level-5", JAX_MINMAX_FRAME_BYTES, card, dev)
+    minmax_dem = make_minmax_dem(DEM_SIZE)
+    minmax_phase(minmax_dem, "wide", JAX_MINMAX_DEM_FRAME_BYTES, card, dev, wide=True)
+    del minmax_dem
+    torch.cuda.empty_cache()
+
+    log("phase 13: device-resident encode, the same rasters already on the card")
+    device_resident_phase(scene, "level-5", card, dev)
+    device_resident_phase(make_dem(DEM_SIZE), "wide", card, dev, wide=True)
+    del scene
+    torch.cuda.empty_cache()
+
+    log("phase 14: files as the reference system writes them")
+    reference_phase(dev, card)
 
     for k in kernels:
         k["launches"] = TOTAL_LAUNCHES.get(k["name"], 0)

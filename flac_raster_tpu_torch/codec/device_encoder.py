@@ -13,6 +13,11 @@ is encoded on the host (``codec/host_encoder.emit_tail_frame``), and so is
 a stream shorter than one block (``host_encoder.encode_flac``), byte for
 byte as the JAX package does.
 
+Rows may also arrive as a tensor already on the device (``converter.
+encode_array_device``): the chunks are then slices of it, and only the rows
+of a tail frame or of a short stream, and the MD5's PCM where asked for,
+come back to the host.
+
 The loop is deliberately simple and sequential -- copy in, compute, copy
 out, one chunk after another.  Overlapping those stages is later work.
 """
@@ -31,7 +36,7 @@ from . import host_encoder
 from .decoder import md5_of_samples
 from .encoder import _BPS_CODES, _SAMPLE_RATE_CODES, EncoderConfig, _blocksize_header
 
-__all__ = ["encode_flac_device", "resolve_device"]
+__all__ = ["encode_flac_device", "resolve_device", "np_dtype", "to_host", "as_int64"]
 
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
 
@@ -49,6 +54,33 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+# tensors whose values travel as the signed type of their width
+_SIGNED_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def np_dtype(t: torch.Tensor) -> np.dtype:
+    """The numpy dtype of a tensor's elements."""
+    return np.dtype(str(t.dtype).removeprefix("torch."))
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array of the same dtype (uint16 and
+    uint32 through their signed views, which every PyTorch build copies)."""
+    signed = _SIGNED_VIEWS.get(t.dtype)
+    if signed is None:
+        return t.cpu().numpy()
+    return t.view(signed).cpu().numpy().view(np_dtype(t))
+
+
+def as_int64(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's integer values as int64 (unsigned types through their
+    signed views)."""
+    signed = _SIGNED_VIEWS.get(t.dtype)
+    if signed is None:
+        return t.long()
+    return t.view(signed).long() & ((1 << (8 * t.element_size())) - 1)
 
 
 def _upload(rows: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -71,7 +103,7 @@ def _patch_crcs(buf: np.ndarray, frame_bits: np.ndarray, hdr_bits: np.ndarray) -
 
 
 def encode_flac_device(
-    samples: np.ndarray,
+    samples: "np.ndarray | torch.Tensor",
     sample_rate: int,
     bits_per_sample: int,
     compression_level: int = 5,
@@ -95,9 +127,10 @@ def encode_flac_device(
     level.
 
     Args:
-        samples: (n,) or (n, channels) integer array.  With ``zero_point``
-            the lossless shift normalization runs on the device, so raw
-            uint16/uint8/int16/int8 rasters are copied as they are.
+        samples: (n,) or (n, channels) integer array, or an integer tensor
+            on ``device``.  With ``zero_point`` the lossless shift
+            normalization runs on the device, so raw uint16/uint8/int16/int8
+            rasters are copied as they are.
         device: ``"cuda"`` (default) or ``"cpu"`` for the plain versions.
 
     Streams of 32 bits per sample take the wide lane
@@ -111,7 +144,14 @@ def encode_flac_device(
             precondition (the chunk's words would be wrong).
     """
     dev = resolve_device(device)
-    samples = np.asarray(samples)
+    on_device = isinstance(samples, torch.Tensor)
+    if on_device:
+        if samples.device.type != dev.type:
+            raise ValueError(f"samples lie on {samples.device}, the encoder runs on {dev}")
+        dtype = np_dtype(samples)
+    else:
+        samples = np.asarray(samples)
+        dtype = samples.dtype
     if samples.ndim == 1:
         samples = samples[:, None]
     n, channels = samples.shape
@@ -119,8 +159,8 @@ def encode_flac_device(
         raise ValueError("FLAC supports 1..8 channels")
     if bits_per_sample not in _BPS_CODES:
         raise ValueError(f"unsupported bits_per_sample {bits_per_sample}")
-    if not np.issubdtype(samples.dtype, np.integer):
-        raise ValueError(f"samples must be integers, not {samples.dtype}")
+    if not np.issubdtype(dtype, np.integer):
+        raise ValueError(f"samples must be integers, not {dtype}")
     if (blocksize & (blocksize - 1)) != 0 or blocksize % 64 != 0:
         raise NotImplementedError(
             f"blocksize {blocksize} needs the host encoder, which is not ported "
@@ -134,7 +174,7 @@ def encode_flac_device(
     n_full = n // blocksize
     if n_full == 0:
         # one short frame: the scalar host encoder, as the JAX package
-        pcm = samples.astype(np.int64) - zero_point
+        pcm = (to_host(samples) if on_device else samples).astype(np.int64) - zero_point
         if n and (int(pcm.min()) < lo or int(pcm.max()) > hi):
             raise ValueError("samples exceed bits_per_sample range")
         return host_encoder.encode_flac(
@@ -146,12 +186,20 @@ def encode_flac_device(
     if zero_point:
         # the subtraction happens on the device, so the dtype's whole range
         # must fit
-        info = np.iinfo(samples.dtype)
+        info = np.iinfo(dtype)
         if info.min - zero_point < lo or info.max - zero_point > hi:
             raise ValueError("dtype range exceeds bits_per_sample under zero_point")
-    elif int(samples.min()) < lo or int(samples.max()) > hi:
-        raise ValueError("samples exceed bits_per_sample range")
-    samples = np.ascontiguousarray(samples)
+    else:
+        if on_device:   # a device reduce and a two-scalar pull
+            wide = as_int64(samples)
+            s_min, s_max = torch.stack([wide.amin(), wide.amax()]).tolist()
+            del wide
+        else:
+            s_min, s_max = int(samples.min()), int(samples.max())
+        if s_min < lo or s_max > hi:
+            raise ValueError("samples exceed bits_per_sample range")
+    if not on_device:
+        samples = np.ascontiguousarray(samples)
 
     bs_code, bs_tail_val, bs_tail_bits = _blocksize_header(blocksize)
     layout = dict(
@@ -180,7 +228,8 @@ def encode_flac_device(
         c1 = min(c0 + chunk, n_full)
         Fc = c1 - c0
         with record_function("frtt.upload"):
-            xc = _upload(samples[c0 * blocksize : c1 * blocksize], dev)
+            xc = samples[c0 * blocksize : c1 * blocksize]
+            xc = xc if on_device else _upload(xc, dev)
             xc = xc.reshape(Fc, blocksize, channels).permute(0, 2, 1)
         n_words = worst_case_words(Fc, channels, blocksize, bits_per_sample + use_ms)
         with record_function("frtt.plan_and_emit"):
@@ -216,18 +265,18 @@ def encode_flac_device(
         subs.append(out["subframe_bits"][:, :-1].cpu().numpy().astype(np.int64))
 
     if n_full * blocksize < n:
-        tail = samples[n_full * blocksize :].astype(np.int64) - zero_point
+        tail = samples[n_full * blocksize :]
+        tail = (to_host(tail) if on_device else tail).astype(np.int64) - zero_point
         chunks.append(host_encoder.emit_tail_frame(
             tail, n_full, bits_per_sample, sr_code, bps_code, cfg))
         sizes.append(np.array([len(chunks[-1])], np.int64))
         subs.append(np.zeros((1, channels - 1), np.int64))   # no layout entry
 
     all_sizes = np.concatenate(sizes)
-    md5 = (
-        md5_of_samples(samples.astype(np.int64) - zero_point, bits_per_sample)
-        if compute_md5
-        else b"\x00" * 16
-    )
+    md5 = b"\x00" * 16
+    if compute_md5:
+        pcm = to_host(samples) if on_device else samples
+        md5 = md5_of_samples(pcm.astype(np.int64) - zero_point, bits_per_sample)
     streaminfo = StreamInfo(
         min_blocksize=blocksize,
         max_blocksize=blocksize,

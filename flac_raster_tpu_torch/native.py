@@ -1,4 +1,5 @@
-"""Host C runtime of the port: CRC patching and the native frame decoder.
+"""Host C runtime of the port: CRC patching, the native frame decoder and
+the residual decoder of the Python frame walk.
 
 The port reuses the JAX package's host C sources (``flac_raster_tpu/native/
 bitpack.cpp`` and ``plan.cpp``) by path: they are read and compiled with
@@ -21,7 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["crc8_patch", "crc16_patch", "crc16_spans", "decode_frames"]
+__all__ = ["crc8_patch", "crc16_patch", "crc16_spans", "decode_frames", "decode_residual"]
 
 _SRC_DIR = Path(__file__).resolve().parent.parent / "flac_raster_tpu" / "native"
 _SRCS = (_SRC_DIR / "bitpack.cpp", _SRC_DIR / "plan.cpp")
@@ -84,6 +85,10 @@ def _load():
         ctypes.c_int64, i64p,
     ]
     lib.decode_frames_c.restype = ctypes.c_int64
+    lib.decode_residual_c.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, i64p,
+    ]
+    lib.decode_residual_c.restype = ctypes.c_int64
     _lib = lib
     return lib
 
@@ -166,3 +171,23 @@ def decode_frames(
         return None
     nf = int(n_frames[0])
     return out, starts[:nf], sizes[:nf]
+
+
+def decode_residual(buf: np.ndarray, bit_pos: int, blocksize: int, order: int):
+    """Decode one subframe's residual section (4- or 5-bit Rice parameters,
+    escape partitions) starting at the absolute bit ``bit_pos`` of ``buf``.
+
+    Returns (blocksize - order residuals int64, the bit offset past them);
+    raises ValueError on a malformed or truncated section.
+    """
+    if buf.dtype != np.uint8 or buf.ndim != 1 or not buf.flags.c_contiguous:
+        raise ValueError("buf must be a contiguous 1-D uint8 array")
+    out = np.empty(blocksize - order, dtype=np.int64)
+    end = _load().decode_residual_c(
+        _ptr(buf, ctypes.c_uint8), buf.size * 8, bit_pos, blocksize, order,
+        _ptr(out, ctypes.c_int64),
+    )
+    if end < 0:
+        raise ValueError("corrupt Rice stream" if end == -2
+                         else "invalid residual coding parameters")
+    return out, int(end)

@@ -18,9 +18,13 @@ and bit operations, so the raster is bit-exact to the host inverse
     bits with int64 operations, folded, viewed as float64.  The JAX
     package takes this mode back to the host (a TPU carries no float64,
     ``converter.py:743-760``); the card does, so the raster stays there,
-    with the same values.
-
-The minmax mode is not ported (ROADMAP Queue 1 item 6).
+    with the same values;
+  * minmax (``device_normalize.py:101-120``): the JAX package computes it in
+    float32 on the device and may land one level off the host inverse.  The
+    card has float64, so here each step of the host inverse
+    (``ops/normalization.denormalize_from_audio``) is its own eager float64
+    op in numpy's order -- no fused multiply-add, no reassociation -- and
+    rounds as numpy's does: the raster equals the host's bit for bit.
 """
 
 from __future__ import annotations
@@ -29,7 +33,14 @@ import numpy as np
 import torch
 
 from .bits import M32
-from .normalization import MODE_FLOAT32_BITS, MODE_FLOAT64_BITS, MODE_SHIFT, NormalizationParams
+from .normalization import (
+    MODE_FLOAT32_BITS,
+    MODE_FLOAT64_BITS,
+    MODE_MINMAX,
+    MODE_SHIFT,
+    NormalizationParams,
+    minmax_scale,
+)
 
 __all__ = ["denormalize_device"]
 
@@ -50,16 +61,47 @@ def _fold(bits: torch.Tensor, flip: int) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ flip, bits)
 
 
+def _cast(x: torch.Tensor, dt: np.dtype) -> torch.Tensor:
+    """int64 or float64 values that fit ``dt`` -> a tensor of ``dt``; the
+    unsigned types narrow through the signed type of their width."""
+    if dt in _SHIFT_TYPES:
+        signed, view = _SHIFT_TYPES[dt]
+        return x.to(signed).view(view)
+    return x.to(getattr(torch, dt.name))
+
+
+def _denormalize_minmax(samples: torch.Tensor, params: NormalizationParams,
+                        bits_per_sample: int, soundfile_compat: bool) -> torch.Tensor:
+    # a 16-bps stream is int16 PCM on the host: the divisor follows the type
+    pcm_dtype = np.int16 if bits_per_sample == 16 else np.int32
+    scale = minmax_scale(pcm_dtype, params, soundfile_compat)
+    # a tensor divisor: PyTorch's CUDA division by a host scalar multiplies
+    # by its reciprocal, which can round differently from numpy's division
+    norm = samples.to(torch.float64) / torch.tensor(scale, dtype=torch.float64,
+                                                    device=samples.device)
+    data_range = params.data_max - params.data_min
+    out = norm + 1.0
+    out = out / 2.0
+    out = out * data_range
+    out = out + params.data_min
+    dt = np.dtype(params.original_dtype)
+    if np.issubdtype(dt, np.integer):
+        return _cast(torch.round(out).to(torch.int64), dt)   # half to even, as np.round
+    return _cast(out, dt)
+
+
 def denormalize_device(samples: torch.Tensor, params: NormalizationParams, *,
-                       bits_per_sample: int) -> torch.Tensor:
+                       bits_per_sample: int, soundfile_compat: bool = False) -> torch.Tensor:
     """int32 PCM (C, ...) -> the raster's dtype, on the same device.
 
     Every mode but float64_bits is elementwise and keeps the shape; for
     float64_bits the first axis holds each band's (hi, lo) channel pair,
     so (2 * bands, ...) becomes (bands, ...).  ``bits_per_sample`` is the
-    stream's (the lossless modes do not need it; minmax will).  Raises
-    NotImplementedError for the minmax mode."""
+    stream's: the minmax inverse picks its divisor from it, with
+    ``soundfile_compat`` as the host inverse does."""
     dt = np.dtype(params.original_dtype)
+    if params.mode == MODE_MINMAX:
+        return _denormalize_minmax(samples, params, bits_per_sample, soundfile_compat)
     if params.mode == MODE_SHIFT and dt in _SHIFT_TYPES:
         signed, view = _SHIFT_TYPES[dt]
         # int32 addition wraps, so uint32's zero point 2^31 enters as its
@@ -73,7 +115,4 @@ def denormalize_device(samples: torch.Tensor, params: NormalizationParams, *,
         hi, lo = samples[0::2] ^ top, samples[1::2] ^ top
         bits = (hi.long() << 32) | (lo.long() & M32)
         return _fold(bits, (1 << 63) - 1).view(torch.float64)
-    raise NotImplementedError(
-        f"device denormalization of {dt} rasters in mode {params.mode!r} is not ported "
-        "yet (ROADMAP Queue 1 item 6, the minmax mode)"
-    )
+    raise ValueError(f"cannot denormalize {dt} rasters in mode {params.mode!r}")

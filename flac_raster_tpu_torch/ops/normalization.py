@@ -1,8 +1,11 @@
-"""Raster dtype <-> PCM sample mapping: the lossless modes.
+"""Raster dtype <-> PCM sample mapping.
 
-The port of the lossless half of ``flac_raster_tpu.ops.normalization``
-(``normalization.py:49-52, 244-326``), numpy copies of its exact
-bijections:
+The port of ``flac_raster_tpu.ops.normalization``, numpy copies of its
+functions.  The minmax mode (``normalization.py:125-237``) maps a raster
+through [-1, 1] to truncated integers at +-32767 (16 bps), +-8388607
+(24 bps, stored at 32 bps) or +-2147483647, NaN to 0; it is lossy, and
+the mode of every file the reference system wrote.  The lossless modes
+(``:244-326``) are exact bijections:
 
   * shift         -- integer rasters minus a per-dtype zero point: 8- and
                      16-bit dtypes to 16-bit PCM, int32/uint32 to 32-bit;
@@ -10,20 +13,24 @@ bijections:
                      (NaN payloads, +-inf and -0.0 kept);
   * float64_bits  -- the same fold on 64 bits, split into two 32-bit
                      channels per band (hi, lo), each XOR 2^31.
-
-The minmax mode is not ported (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 
+logger = logging.getLogger("flac_raster_tpu_torch.normalization")
+
 __all__ = [
     "NormalizationParams",
     "calculate_audio_params",
+    "normalize_to_audio",
+    "denormalize_from_audio",
+    "estimate_precision_loss",
     "normalize_lossless",
     "denormalize_lossless",
     "MODE_MINMAX",
@@ -113,6 +120,112 @@ def calculate_audio_params(data: np.ndarray, dtype: np.dtype) -> Tuple[int, int]
     return sample_rate, bits_per_sample
 
 
+def normalize_to_audio(
+    data: np.ndarray,
+    bits_per_sample: int,
+    data_min: float | None = None,
+    data_max: float | None = None,
+) -> Tuple[np.ndarray, NormalizationParams]:
+    """Minmax normalization: data -> [-1, 1] -> integers truncated at
+    +-scale_factor (int16 at 16 bps, int32 otherwise)."""
+    original_dtype = str(data.dtype)
+    if data_min is None:
+        data_min = float(np.nanmin(data))
+    if data_max is None:
+        data_max = float(np.nanmax(data))
+    if data_max <= data_min:
+        logger.warning("data has no range (min=%s max=%s)", data_min, data_max)
+        data_range = 1.0
+    else:
+        data_range = data_max - data_min
+
+    norm = 2.0 * (data.astype(np.float64) - data_min) / data_range - 1.0
+    norm = np.clip(norm, -1.0, 1.0)
+    nan_mask = np.isnan(norm)
+    if nan_mask.any():
+        logger.warning("found %d NaN values, replacing with 0", int(nan_mask.sum()))
+        norm[nan_mask] = 0.0
+
+    if bits_per_sample == 16:
+        scale_factor = 32767
+        audio = (norm * scale_factor).astype(np.int16)
+    elif bits_per_sample == 24:
+        scale_factor = 8388607
+        audio = (norm * scale_factor).astype(np.int32)
+    else:
+        scale_factor = 2147483647
+        audio = (norm * scale_factor).astype(np.int32)
+    return audio, NormalizationParams(
+        data_min=data_min, data_max=data_max, original_dtype=original_dtype,
+        bits_per_sample=bits_per_sample, scale_factor=scale_factor, mode=MODE_MINMAX,
+    )
+
+
+def minmax_scale(pcm_dtype: np.dtype, params: NormalizationParams,
+                 soundfile_compat: bool = False) -> float:
+    """The divisor that maps minmax PCM of ``pcm_dtype`` back to [-1, 1].
+
+    ``soundfile_compat`` reproduces how the reference system read its own
+    files: libsndfile scales int16 by 2^15 and every wider stream by 2^31,
+    its "24-bit" files (ints at +-8388607) included.  Otherwise the
+    encode-time scale: 32767 for int16, the stored scale factor else."""
+    pcm_dtype = np.dtype(pcm_dtype)
+    if np.issubdtype(pcm_dtype, np.floating):
+        return 1.0
+    if soundfile_compat:
+        return 32768.0 if pcm_dtype == np.int16 else 2147483648.0
+    if pcm_dtype == np.int16:
+        return 32767.0
+    return float(params.scale_factor)
+
+
+def denormalize_from_audio(
+    audio_data: np.ndarray,
+    params: NormalizationParams,
+    soundfile_compat: bool = False,
+) -> np.ndarray:
+    """Invert minmax normalization (:func:`minmax_scale` picks the divisor);
+    integer rasters round half to even, as ``np.round`` does."""
+    scale_factor = minmax_scale(audio_data.dtype, params, soundfile_compat)
+    norm = audio_data.astype(np.float64) / scale_factor
+    data_range = params.data_max - params.data_min
+    out = (norm + 1.0) / 2.0 * data_range + params.data_min
+    original_dtype = np.dtype(params.original_dtype)
+    if np.issubdtype(original_dtype, np.integer):
+        return np.round(out).astype(original_dtype)
+    return out.astype(original_dtype)
+
+
+def estimate_precision_loss(
+    original_dtype: np.dtype,
+    data_min: float,
+    data_max: float,
+    bits_per_sample: int,
+) -> dict:
+    """Quantization error of the minmax mode (the lossless modes have none)."""
+    dtype = np.dtype(original_dtype)
+    data_range = data_max - data_min
+    if bits_per_sample == 16:
+        levels = 65534
+    elif bits_per_sample == 24:
+        levels = 16777214
+    else:
+        levels = 4294967294
+    max_error = data_range / levels
+    rel = (max_error / data_range) * 100 if data_range > 0 else 0.0
+    is_lossless = False
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        is_lossless = (info.max - info.min) <= levels
+    return {
+        "max_absolute_error": max_error,
+        "relative_error_percent": rel,
+        "quantization_levels": levels,
+        "is_lossless": is_lossless,
+        "bits_per_sample": bits_per_sample,
+    }
+
+
 def _float_bits_fold(u: np.ndarray, sign_shift: int) -> np.ndarray:
     """Order-preserving involution on float bit patterns (uint32 or uint64):
     a set sign bit flips every other bit.  Applying it twice is the
@@ -172,7 +285,4 @@ def denormalize_lossless(audio: np.ndarray, params: NormalizationParams) -> np.n
         hi = (pairs[..., 0].astype(np.int32).view(np.uint32) ^ top).astype(np.uint64)
         lo = (pairs[..., 1].astype(np.int32).view(np.uint32) ^ top).astype(np.uint64)
         return _float_bits_fold((hi << np.uint64(32)) | lo, 63).view(np.float64)
-    raise NotImplementedError(
-        f"normalization mode {params.mode!r} is not ported yet (ROADMAP Queue 1 item 6, "
-        "the minmax mode)"
-    )
+    raise ValueError(f"not a lossless mode: {params.mode}")

@@ -88,16 +88,22 @@ def test_md5_written_and_checked():
     "dtype,lossless", [(np.float32, False), (np.int32, False), (np.uint16, False)]
 )
 def test_unported_modes_raise(dtype, lossless):
-    """Every lossless mode is ported; the minmax mode is not."""
-    data = np.zeros((1, 8, 512), dtype)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        RasterFLACConverter(lossless=lossless, device="cpu").encode_array(data)
+    """The minmax mode encodes as the JAX package's does (byte for byte at
+    level 0) and both packages decode the file to the same raster."""
+    data = _raster(np.int16, h=8).astype(dtype)
+    blob = RasterFLACConverter(lossless=lossless, device="cpu").encode_array(
+        data, compression_level=0)
+    assert blob == JaxConverter(lossless=lossless).encode_array(data, compression_level=0)
+    got, meta = RasterFLACConverter(device="cpu").decode_bytes(blob)
+    jgot, _ = JaxConverter().decode_bytes(blob)
+    assert meta["normalization"].mode == "minmax"
+    assert got.dtype == jgot.dtype == dtype and got.tobytes() == jgot.tobytes()
 
 
 def test_stream_without_a_sample_count_names_its_roadmap_item():
     """A STREAMINFO whose total-samples field is 0 (as libFLAC writes when
-    it cannot seek back): the JAX package decodes it with its Python frame
-    walk; the port, which has not ported that walk, says which item does."""
+    it cannot seek back): the port's Python frame walk decodes it as the
+    JAX package's does."""
     from flac_raster_tpu.codec.decoder import decode_flac as jax_decode_flac
     from flac_raster_tpu_torch import decode_flac
 
@@ -110,5 +116,5 @@ def test_stream_without_a_sample_count_names_its_roadmap_item():
     assert parse_flac_metadata(bytes(blob))[0].total_samples == 0
     dec = jax_decode_flac(bytes(blob))
     assert np.array_equal(dec.samples[:, 0], data.reshape(-1).astype(np.int64) - 32768)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 6\(b\)"):
-        decode_flac(bytes(blob))
+    got = decode_flac(bytes(blob), verify_crc=True, verify_md5=True)
+    assert got.samples.dtype == np.int32 and np.array_equal(got.samples, dec.samples)

@@ -1,8 +1,9 @@
 """The port's decode kernels (plain PyTorch versions, on the CPU) against the
 JAX package's functions they replace, on the same inputs.
 
-* gather: ``ops/gather`` vs ``device_decoder._gather_windows_jit`` (XLA row
-  gather) and ``pallas_gather.gather_windows_dma`` (K10, interpret mode);
+* gather: ``ops/gather`` and its kernel's mirror ``gather_windows_mirror``
+  vs ``device_decoder._gather_windows_jit`` (XLA row gather) and
+  ``pallas_gather.gather_windows_dma`` (K10, interpret mode);
 * bit readers: ``ops/bits`` vs ``device_decode._read32/_take_bits/_sext``
   and ``pallas_rice_scan2._clz32``;
 * Rice scan: ``ops/rice_scan`` vs ``pallas_rice_scan2.rice_scan_full`` (K8,
@@ -73,6 +74,45 @@ def test_gather_zero_fills_outside_the_body():
     assert not out[3].any()
     empty = gather.gather_windows(torch.zeros(0, dtype=torch.int32), torch.tensor([0, 5]), 8)
     assert empty.shape == (2, 8) and not empty.any()
+    empty_m, _ = gather.gather_windows_mirror(torch.zeros(0, dtype=torch.int32),
+                                              torch.tensor([0, 5, -3]), 8)
+    assert empty_m.shape == (3, 8) and not empty_m.any()
+
+
+@pytest.mark.parametrize("view", [0, 1, 2, 3])
+def test_gather_mirror_matches_reference_and_pallas_dma(view):
+    """K10's routes (``gather_windows_mirror``) against the masked index and
+    the JAX DMA kernel in interpret mode, tolerance 0: every ``word0 & 3``,
+    windows that start before 0 or run past R, a row of two warp chunks
+    (W = 516 words, 129 vectors), and a body view whose base lies 4 * view
+    bytes past a 16-byte boundary.  The JAX kernel reads aligned 8-row
+    stripes of a zero-padded body, so its windows are taken from a body
+    padded by 1024 words in front and sliced at the word offset."""
+    rng = np.random.default_rng(20 + view)
+    R, W = 128 * 40 - 5, 516
+    full = torch.empty(R + view, dtype=torch.int32)   # torch aligns its allocations
+    full.copy_(torch.from_numpy(_u32(rng, R + view).view(np.int32)))
+    body = full[view:]
+    assert (body.data_ptr() >> 2) & 3 == view
+    word0 = np.array([s + d for s in range(4)
+                      for d in (0, 1024, 2052, 3000, R - W // 2, R - 3, R + 10, -1 - s, -W // 2)],
+                     np.int64)
+    word0_t = torch.from_numpy(word0)
+    ref = gather.gather_windows_reference(body, word0_t, W)
+    got, straddles = gather.gather_windows_mirror(body, word0_t, W)
+    assert torch.equal(got, ref)
+    assert straddles > 0     # the windows across 0 and R took the checked route
+
+    lead = 1024
+    rows = -(-(lead + R + 2 * 1024 + W) // 1024) * 8
+    padded = np.zeros(rows * 128, np.uint32)
+    padded[lead : lead + R] = body.numpy().view(np.uint32)
+    shifted = word0 + lead
+    row0 = (shifted // 1024 * 8).astype(np.int32)
+    dma = np.asarray(gather_windows_dma(jnp.asarray(padded.reshape(-1, 128)), jnp.asarray(row0),
+                                        out_rows=16, interpret=True))
+    cols = (shifted % 1024)[:, None] + np.arange(W)
+    assert np.array_equal(got.numpy().view(np.uint32), np.take_along_axis(dma, cols, 1))
 
 
 def test_gather_rejects_bad_input():

@@ -184,10 +184,16 @@ def test_mutation_fuzz_raises_or_decodes_exactly(stream):
 
 
 def test_unported_cases_raise():
-    params = NormalizationParams(data_min=0.0, data_max=1.0, original_dtype="float32",
+    """The minmax inverse on the device equals the host's; a 32-bps stream
+    of the JAX package's takes the wide lane."""
+    from flac_raster_tpu_torch.ops.normalization import denormalize_from_audio
+
+    params = NormalizationParams(data_min=-3.5, data_max=1.25, original_dtype="float32",
                                  bits_per_sample=16, scale_factor=32767, mode="minmax")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        denormalize_device(torch.zeros(4, dtype=torch.int32), params, bits_per_sample=16)
+    pcm = np.array([-32767, -1, 0, 1, 12345, 32767], np.int32)
+    dev = denormalize_device(torch.from_numpy(pcm), params, bits_per_sample=16)
+    host = denormalize_from_audio(pcm.astype(np.int16), params)
+    assert dev.dtype == torch.float32 and dev.numpy().tobytes() == host.tobytes()
     # a 32-bps stream of the JAX package's takes the wide lane (no host route)
     x = np.random.default_rng(13).integers(-(1 << 31), 1 << 31, (N * 2, 1)).astype(np.int64)
     blob = encode_flac_fast(x, 44100, 32, 5, blocksize=N)

@@ -349,6 +349,28 @@ def test_gather_kernel_matches_plain_and_zero_fills(cuda, W):
         gather.gather_windows(body, word0, W + 2)
 
 
+@pytest.mark.parametrize("view", [0, 1, 2, 3])
+@pytest.mark.parametrize("W", [4, 512, 516, 872])
+def test_gather_kernel_offsets_and_views_match_plain(cuda, view, W):
+    """Every ``word0 & 3`` and a body view whose base lies 4 * view bytes
+    past a 16-byte boundary, windows across 0 and R and wholly outside, and
+    rows of one, four and more warp chunks (W = 516: 129 vectors): the
+    kernel equals the masked index, tolerance 0."""
+    rng = np.random.default_rng(100 * view + W)
+    R = 20_011
+    full = torch.from_numpy(_u32(rng, R + view)).to(cuda)
+    body = full[view:]
+    assert (body.data_ptr() >> 2) & 3 == view
+    edges = [s + d for s in range(4) for d in (0, 4096, R - W // 2, R - 3, R + 5, -1 - s,
+                                              -(W // 2), -W - 8)]
+    word0 = np.concatenate([rng.integers(-W, R, 600), edges]).astype(np.int64)
+    word0 = torch.from_numpy(word0).to(cuda)
+    out = gather.gather_windows(body, word0, W)
+    ref = gather.gather_windows_reference(body, word0, W)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 def _scan_inputs(rng, B, W, n, cuda):
     words = torch.from_numpy(_u32(rng, (B, W))).to(cuda)
 
@@ -673,3 +695,70 @@ def test_pack_v5_unaligned_fields_and_buffer(cuda):
     torch.cuda.synchronize()
     assert out.data_ptr() % 8 and vals.data_ptr() % 16
     assert torch.equal(out, ref) and not buf[0] and not buf[-1]
+
+
+def _card_tensor(data, cuda):
+    """A host raster as a tensor of its dtype on the card (unsigned
+    types through their signed views)."""
+    signed = {np.dtype(np.uint16): (np.int16, torch.uint16),
+              np.dtype(np.uint32): (np.int32, torch.uint32)}.get(data.dtype)
+    if signed is None:
+        return torch.from_numpy(data).to(cuda)
+    return torch.from_numpy(data.view(signed[0])).to(cuda).view(signed[1])
+
+
+@pytest.mark.parametrize("dtype,bands", [("uint16", 1), ("uint16", 2), ("int16", 1),
+                                         ("uint32", 1), ("float32", 2)])
+def test_encode_array_device_on_card_matches_host(cuda, dtype, bands):
+    """A raster already on the card: the bytes of encode_array on the host
+    copy (MD5 off), and with compute_md5 the host's MD5; a tail frame."""
+    from flac_raster_tpu_torch import RasterFLACConverter
+
+    rng = np.random.default_rng(bands)
+    t = np.arange(40 * 700).reshape(40, 700)
+    base = 2000 * np.sin(t / 800.0) + np.cumsum(rng.integers(-7, 8, (bands, t.size)),
+                                               axis=1).reshape(bands, 40, 700)
+    if dtype == "float32":
+        data = (base / 4).astype(np.float32)
+        data[0, 3, 3], data[-1, 1, 1] = np.nan, -np.inf
+    else:
+        info = np.iinfo(dtype)
+        data = np.clip(base + (int(info.min) + int(info.max)) // 2, info.min, info.max).astype(dtype)
+    conv = RasterFLACConverter(device="cuda", compute_md5=False)
+    want = conv.encode_array(data, compression_level=5)
+    got = conv.encode_array_device(_card_tensor(data, cuda), compression_level=5)
+    assert got == want
+    with_md5 = conv.encode_array_device(_card_tensor(data, cuda), compression_level=5,
+                                        compute_md5=True)
+    host_md5 = RasterFLACConverter(device="cuda").encode_array(data, compression_level=5)
+    assert with_md5[26:42] == host_md5[26:42] != bytes(16)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int16", "uint16", "int32", "uint32", "float32",
+                                   "float64"])
+@pytest.mark.parametrize("stream_bps", [16, 32])
+def test_minmax_inverse_on_card_matches_host(cuda, dtype, stream_bps):
+    """The float64 minmax inverse on the card equals the host inverse bit
+    for bit, with both divisors (soundfile_compat)."""
+    from flac_raster_tpu_torch.ops.device_normalize import denormalize_device
+    from flac_raster_tpu_torch.ops.normalization import NormalizationParams, denormalize_from_audio
+
+    rng = np.random.default_rng(stream_bps)
+    lim = 32767 if stream_bps == 16 else 8388607
+    pcm = rng.integers(-lim, lim + 1, (2, 50_000)).astype(np.int32)
+    pcm[0, :3] = [-lim, 0, lim]
+    lo, hi = ((np.iinfo(dtype).min, np.iinfo(dtype).max) if np.dtype(dtype).kind in "iu"
+              else (-431.25, 8848.86))
+    params = NormalizationParams(
+        data_min=float(lo) / 3, data_max=float(hi) / 2, original_dtype=dtype,
+        bits_per_sample=16 if stream_bps == 16 else 24,
+        scale_factor=32767 if stream_bps == 16 else 8388607)
+    host_pcm = pcm.T.astype(np.int16) if stream_bps == 16 else pcm.T
+    for compat in (False, True):
+        host = denormalize_from_audio(host_pcm, params, soundfile_compat=compat)
+        dev = denormalize_device(torch.from_numpy(pcm).to(cuda), params,
+                                 bits_per_sample=stream_bps, soundfile_compat=compat)
+        assert dev.device.type == "cuda" and str(dev.dtype) == f"torch.{dtype}"
+        signed = {torch.uint16: torch.int16, torch.uint32: torch.int32}.get(dev.dtype, dev.dtype)
+        got = dev.view(signed).cpu().numpy()
+        assert np.ascontiguousarray(got.T).tobytes() == host.tobytes()

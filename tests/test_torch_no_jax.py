@@ -19,6 +19,8 @@ from flac_raster_tpu_torch.models import flac_format, metadata
 from flac_raster_tpu_torch.ops import device_codec, device_emit, normalization, pack, rice_cost
 from flac_raster_tpu_torch.ops import bits, device_decode, device_normalize, gather, restore
 from flac_raster_tpu_torch.ops import rice_group, rice_scan, stereo, wide_codec
+from flac_raster_tpu_torch.ops import bitpack, crc, fixed, lpc
+from flac_raster_tpu_torch import converter
 from flac_raster_tpu_torch.codec import host_encoder
 import chip_smoke
 bad = sorted(m for m in sys.modules

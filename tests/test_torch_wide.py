@@ -115,11 +115,17 @@ def test_lossless_modes_match_jax_and_invert_on_the_device(dtype):
 
 
 def test_minmax_mode_is_not_ported():
+    """A minmax parameter set is not a lossless mode (as in the JAX
+    package); its device inverse equals the host inverse."""
     params = normalization.NormalizationParams(0.0, 1.0, "float32", 16, 32767, mode="minmax")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="not a lossless mode"):
         normalization.denormalize_lossless(np.zeros((4, 1), np.int32), params)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        denormalize_device(torch.zeros((1, 4), dtype=torch.int32), params, bits_per_sample=16)
+    with pytest.raises(ValueError, match="not a lossless mode"):
+        jnorm.denormalize_lossless(np.zeros((4, 1), np.int32), params)
+    pcm = np.arange(-32767, 32768, 97, dtype=np.int32)[None]
+    dev = denormalize_device(torch.from_numpy(pcm), params, bits_per_sample=16)
+    host = normalization.denormalize_from_audio(pcm.astype(np.int16), params)
+    assert dev.numpy().tobytes() == host.tobytes()
 
 
 def test_wide_sample_read_is_the_whole_word():
@@ -214,6 +220,12 @@ def test_converter_channel_limit_and_minmax():
     port = RasterFLACConverter(device="cpu")
     with pytest.raises(ValueError, match="8 channels"):
         port.encode_array(np.zeros((5, 4, 64), np.float64))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        RasterFLACConverter(lossless=False, device="cpu").encode_array(
-            np.zeros((4, 64), np.float32))
+    # minmax: a float32 raster as the reference's "24-bit" samples at 32 bps
+    data = _wide_raster(np.float32, 1)
+    data[np.isnan(data) | np.isinf(data)] = 0.0
+    blob = RasterFLACConverter(lossless=False, device="cpu").encode_array(
+        data, compression_level=0)
+    assert blob == JaxConverter(lossless=False).encode_array(data, compression_level=0)
+    got, meta = port.decode_bytes(blob)
+    assert meta["normalization"].scale_factor == 8388607
+    assert got.tobytes() == JaxConverter().decode_bytes(blob)[0].tobytes()
