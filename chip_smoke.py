@@ -64,7 +64,26 @@ is not 0:
  14. files as the reference system writes them (minmax, no layout index, a
      STREAMINFO sample count of 0; metadata in a JSON sidecar or in the
      comments): ``decode_bytes_device`` takes the visible host route (the
-     Python frame walk), inverts on the card and equals ``decode_bytes``.
+     Python frame walk), inverts on the card and equals ``decode_bytes``;
+ 15. GeoTIFF in and out: the 10980x10980 band written as a tiled DEFLATE
+     GeoTIFF with a CRS and an affine, ``tiff_to_flac`` on the card (launch
+     counts), ``flac_to_tiff`` and ``compare_tiffs`` (equal arrays, CRS and
+     transform kept), each timed;
+ 16. the spatial file of that GeoTIFF at level 5, tiles of 512 (484 tiles in
+     four shape groups, each group one batched encode): timed encode with
+     launch counts, offsets and sizes exact, tile frame bytes held to the
+     JAX package's; ``decode_bbox_device`` of a 4x4-tile bbox and of the
+     whole raster, timed with launch counts, every tile equal to
+     ``decode_bbox``'s and the source on the card, tile 0 alone on the host
+     route (its rebuilt header has no layout index); ``iter_bbox_to_device``
+     of the 4x4 bbox;
+ 17. the streaming container of the GeoTIFF at level 5 on the card; the
+     4x4 bbox's tiles read back and decoded on the device route, equal to
+     the source;
+ 18. rows 4000-4511 of the phase-3 file on disk: ``decode_rows`` and
+     ``decode_rows_ranged`` through a counting byte source (under 10% of the
+     file fetched), and ``decode_flac_device(sample_range=...)`` on the
+     device route equal to ``decode_flac_range``, all timed.
 
 Phase 6 holds the window gather on every ``word0 & 3``, on windows before
 the body and past it, and on body views 4, 8 and 12 bytes past a 16-byte
@@ -95,7 +114,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -124,6 +145,12 @@ JAX_DEM_FRAME_BYTES = 28182137
 # tools/jax_minmax_sizes.py (the JAX package's device encoder on the CPU).
 JAX_MINMAX_FRAME_BYTES = 65592656
 JAX_MINMAX_DEM_FRAME_BYTES = 25113267
+# The tiles of the spatial file of make_raster(10980) at level 5, tile 512
+# (phase 16): the sum of the 484 tiles' frame bytes, from
+# tools/jax_spatial_sizes.py (the JAX package's tile encode on one CPU
+# device, 37 s) with flac_raster_tpu at commit 2d565b8.
+SPATIAL_TILE = 512
+JAX_SPATIAL_FRAME_BYTES = 104172219
 SIZE_ENVELOPE = 1.0025
 
 
@@ -281,7 +308,7 @@ PACK_SOURCES = {"v1": "pack.cu", "v2": "pack_v2.cu", "v3": "pack_v3.cu", "v4": "
 # the TPU kernel each version replaces: pack_tokens (v1) and the bodies
 # of its v2-v5 variants
 PACK_REPLACES = {"v1": 372, "v2": 78, "v3": 144, "v4": 203, "v5": 272}
-# launches on the driven paths (phases 3, 7, 8, 9, 10), per kernel
+# launches on the driven paths, per kernel
 TOTAL_LAUNCHES: dict[str, int] = {}
 
 
@@ -539,7 +566,7 @@ def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
     layout = dict(blocksize=N, bps=16, sr_code=_SAMPLE_RATE_CODES.get(96000, 0),
                   bps_code=_BPS_CODES[16], bs_code=bs_code, bs_tail_bits=bs_tail_bits,
                   bs_tail_val=bs_tail_val, max_partition_order=6)
-    tok = de.emit_tokens(x, plan, 0, **layout)
+    tok = de.emit_tokens(x, plan, torch.arange(F, device=dev), **layout)
     n_words = de.worst_case_words(F, 1, N, 16)
     log(f"pack input, level 5: header {tok['header'][0].numel()} + samples "
         f"{tok['samples'][0].numel()} tokens, {n_words} words")
@@ -557,7 +584,8 @@ def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
     plan, xs, codes, ch_bps = de._plan_mid_side(
         xs, 16, blocksize=N, max_lpc_order=cfg.max_lpc_order, max_partition_order=6,
         use_lpc=True, apodizations=cfg.apodizations)
-    tok = de.emit_tokens(xs, plan, 0, chan_code=codes, ch_bps=ch_bps, **layout)
+    tok = de.emit_tokens(xs, plan, torch.arange(F, device=dev), chan_code=codes,
+                         ch_bps=ch_bps, **layout)
     n_words = de.worst_case_words(F, 2, N, 17)
     hdr = pack.pack_tokens(*tok["header"], n_words)
     l8 = pack_versions(tok["samples"], hdr, n_words, N, "level-8 mid-side")
@@ -1169,16 +1197,340 @@ def reference_phase(dev, card: str) -> None:
                 f"soundfile_compat inverse on the card equal to decode_bytes, {dt:.3f} s | {card}")
 
 
+# the phase-15 band's georeference: a UTM 33N tile of 10 m pixels
+BAND_CRS = "EPSG:32633"
+BAND_ORIGIN = (600000.0, 5000040.0, 10.0, 10.0)
+
+
+def tile_box(r0: int, c0: int, rows: int, cols: int) -> tuple:
+    """The bbox of the block of rows x cols tiles of SPATIAL_TILE pixels whose
+    top-left tile is (r0, c0), 1 m inside its edges (the index's
+    intersection is strict, so the neighbours stay out)."""
+    west, north, px, _ = BAND_ORIGIN
+    step = SPATIAL_TILE * px
+    return (west + c0 * step + 1, north - (r0 + rows) * step + 1,
+            west + (c0 + cols) * step - 1, north - r0 * step - 1)
+
+
+def same_on_card(tile, want: np.ndarray, dev) -> bool:
+    """A (bands, h, w) tensor on the card equals a host raster bit for bit."""
+    import torch
+
+    np_int, torch_int = _INT_VIEWS[want.itemsize]
+    return (tile.device.type == dev.type and tuple(tile.shape) == want.shape
+            and torch.equal(tile.view(getattr(torch, torch_int)),
+                            torch.from_numpy(np.ascontiguousarray(want).view(np_int)).to(dev)))
+
+
+def geotiff_phase(band: np.ndarray, work, card: str) -> None:
+    """Phase 15: the band as a tiled DEFLATE GeoTIFF, ``tiff_to_flac`` on the
+    card with launch counts, ``flac_to_tiff``, and ``compare_tiffs``: equal
+    arrays, the CRS and the transform kept.  Each step timed."""
+    from flac_raster_tpu_torch import Affine, RasterFLACConverter, compare_tiffs
+    from flac_raster_tpu_torch.io.geotiff import open_geotiff, write_geotiff
+
+    tif, flac, back = work / "band.tif", work / "band.flac", work / "back.tif"
+    t0 = time.perf_counter()
+    write_geotiff(tif, band[None], crs=BAND_CRS, transform=Affine.from_origin(*BAND_ORIGIN),
+                  compress="deflate", tiled=True, tile_size=SPATIAL_TILE)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open_geotiff(tif) as src:
+        src.read()
+    t_read = time.perf_counter() - t0
+    conv = RasterFLACConverter(device="cuda", compute_md5=False)
+    _, t_enc, launches = run_path("tiff_to_flac", lambda: conv.tiff_to_flac(
+        tif, flac, compression_level=LEVEL), encode_kernels())
+    t0 = time.perf_counter()
+    conv.flac_to_tiff(flac, back)
+    t_dec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = compare_tiffs(tif, back)
+    t_cmp = time.perf_counter() - t0
+    with open_geotiff(tif) as a, open_geotiff(back) as b:
+        same_geo = a.crs == b.crs == BAND_CRS and tuple(a.transform) == tuple(b.transform)
+    if not (res["arrays_equal"] and res["crs_match"] and same_geo):
+        raise AssertionError(f"the GeoTIFF round trip differs: {res}")
+    log(f"GeoTIFF {band.shape} {band.dtype}, DEFLATE tiled {SPATIAL_TILE}: write_geotiff "
+        f"{t_write:.3f} s ({tif.stat().st_size} bytes), its read alone {t_read:.3f} s; "
+        f"tiff_to_flac {t_enc:.3f} s "
+        f"({band.nbytes / t_enc / 1e6:.2f} MB/s raw, {flac.stat().st_size} bytes, launches "
+        f"{launches}); flac_to_tiff {t_dec:.3f} s; compare_tiffs {t_cmp:.3f} s: arrays equal, "
+        f"CRS and transform kept | {card}")
+
+
+def spatial_phase(band: np.ndarray, work, card: str, dev) -> None:
+    """Phase 16: the spatial file of the phase-15 GeoTIFF at level 5, tile
+    512: timed encode with launch counts, offsets and sizes exact, frame
+    bytes held to the JAX package's; ``decode_bbox_device`` of a 4 x 4-tile
+    bbox and of the whole raster, timed, with launch counts and each tile's
+    route, equal to ``decode_bbox`` and the source on the card; then
+    ``iter_bbox_to_device`` of the 4 x 4 bbox."""
+    import torch
+
+    from flac_raster_tpu_torch import (
+        Affine, RasterFLACConverter, SpatialFLACEncoder, SpatialFLACStreamer,
+    )
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
+    from flac_raster_tpu_torch.models.spatial import compute_tile_grid, encode_tiles_batched
+
+    tif, sflac = work / "band.tif", work / "band.spatial.flac"
+    enc = SpatialFLACEncoder(tile_size=SPATIAL_TILE, device="cuda")
+    index, dt, launches = run_path("the spatial encode", lambda: enc.encode_spatial_flac(
+        tif, sflac, compression_level=LEVEL), encode_kernels())
+    blob = sflac.read_bytes()
+    shapes: dict = {}
+    pos = frame_bytes = 0
+    for f in index.frames:
+        tile = blob[f.byte_offset : f.byte_offset + f.byte_size]
+        if f.byte_offset != pos or tile[:4] != b"fLaC":
+            raise AssertionError(f"tile {f.frame_id}: offset {f.byte_offset}, expected {pos}")
+        frame_bytes += len(tile) - parse_flac_metadata(tile)[2]
+        shapes[f.window.height, f.window.width] = shapes.get((f.window.height, f.window.width),
+                                                             0) + 1
+        pos += f.byte_size
+    if pos != len(blob):
+        raise AssertionError(f"the tiles cover {pos} of {len(blob)} bytes")
+    log(f"spatial encode (GeoTIFF read to file written), {len(index.frames)} tiles {shapes}: "
+        f"{dt:.3f} s, {band.nbytes / dt / 1e6:.2f} MB/s raw, {len(blob)} bytes, offsets exact, "
+        f"launches {launches} | {card}")
+    # the tile encode alone (the raster in memory), with the MD5 as the
+    # spatial encoder writes it and without
+    grid = compute_tile_grid(*band.shape, SPATIAL_TILE)
+    for md5 in (True, False):
+        conv = RasterFLACConverter(device="cuda", compute_md5=md5)
+        _, dt, launches = run_path("the tile encode", lambda: encode_tiles_batched(
+            conv, band[None], grid, BAND_CRS, Affine.from_origin(*BAND_ORIGIN), None, LEVEL),
+            encode_kernels())
+        log(f"tile encode alone (encode_tiles_batched, MD5 {'on' if md5 else 'off'}): {dt:.3f} "
+            f"s, {band.nbytes / dt / 1e6:.2f} MB/s raw, launches {launches} | {card}")
+    limit = JAX_SPATIAL_FRAME_BYTES * SIZE_ENVELOPE
+    log(f"spatial tile frame bytes: port {frame_bytes}, JAX package {JAX_SPATIAL_FRAME_BYTES}, "
+        f"ratio {frame_bytes / JAX_SPATIAL_FRAME_BYTES:.6f} (limit {SIZE_ENVELOPE})")
+    if frame_bytes > limit:
+        raise AssertionError(f"spatial tiles: port frames {frame_bytes} B exceed {limit:.0f} B")
+
+    # the batch plans the first row's tiles together: does any tile's plan
+    # (the float32 LPC stage's reductions) change with the batch?
+    conv = RasterFLACConverter(device="cuda")
+    n = band.shape[-1] // SPATIAL_TILE
+    tiles = np.stack([band[None, :SPATIAL_TILE, i * SPATIAL_TILE : (i + 1) * SPATIAL_TILE]
+                      for i in range(n)])
+    batch = conv.encode_array_batch(tiles, compression_level=LEVEL)
+    same = sum(b == conv.encode_array(t, compression_level=LEVEL) for b, t in zip(batch, tiles))
+    for b, t in zip(batch, tiles):
+        if conv.decode_bytes(b)[0].tobytes() != t.tobytes():
+            raise AssertionError("a tile of the level-5 batch does not round-trip")
+    # the float32 autocorrelation of 16 blocks alone and as the first 16 of
+    # 16 x 2^k: PyTorch's CUDA sum over a row picks its thread layout from
+    # the number of rows, so the sums may round apart
+    from flac_raster_tpu_torch.ops.device_codec import _autocorrelation
+
+    rows = min(1024, band.size // 4096)
+    x = torch.from_numpy(band.reshape(-1)[: rows * 4096].astype(np.int32)).to(dev)
+    x = x.reshape(rows, 4096) - 32768
+    r16 = _autocorrelation(x[:16], 8, "tukey(0.5)")
+    agree = {n: torch.equal(_autocorrelation(x[:n], 8, "tukey(0.5)")[:16], r16)
+             for n in (16, 64, 256, 1024) if n <= rows}
+    log(f"level-5 batch of {n} tiles: {same} of {n} equal to encode_array of the tile; all "
+        f"round-trip bit for bit; float32 autocorrelation of 16 blocks equal to theirs "
+        f"among N rows: {agree}")
+
+    st = SpatialFLACStreamer(sflac, device="cuda")
+    n_tiles = len(index.frames)
+    box = tile_box(2, 3, 4, 4)
+    st.decode_bbox_device(box)       # warm-up
+    for label, bbox, want_n in (("4x4-tile bbox", box, 16),
+                                ("whole raster", (-1e9, -1e9, 1e9, 1e9), n_tiles)):
+        t0 = time.perf_counter()
+        host = st.decode_bbox(bbox)
+        t_host = time.perf_counter() - t0
+        got, dt, launches = run_path(f"decode_bbox_device of the {label}",
+                                     lambda: st.decode_bbox_device(bbox), DECODE_KERNELS["full"])
+        if not len(got) == len(host) == want_n:
+            raise AssertionError(f"{label}: {len(got)} tiles, {len(host)} on the host")
+        for (f, tile), (hf, htile) in zip(got, host):
+            w = f.window
+            src = band[None, w.row_off : w.row_off + w.height, w.col_off : w.col_off + w.width]
+            if f is not hf or not (same_on_card(tile, htile, dev) and same_on_card(tile, src, dev)):
+                raise AssertionError(f"{label}: tile {f.frame_id} differs")
+        routes = [r.startswith("host: ") for r in st.last_routes]
+        expect = [f.frame_id == 0 for f, _ in got]
+        if routes != expect:
+            raise AssertionError(f"{label}: host routes at tiles "
+                                 f"{[f.frame_id for (f, _), h in zip(got, routes) if h]}")
+        raw = sum(t.numel() * t.element_size() for _, t in got)
+        log(f"decode_bbox_device, {label}: {len(got)} tiles in {dt:.3f} s, {dt / len(got) * 1e3:.3f} "
+            f"ms a tile, {raw / dt / 1e6:.2f} MB/s raw, launches {launches}, host routes "
+            f"{sum(routes)} (tile 0: {'in' if expect[0] else 'not in'} the bbox); decode_bbox "
+            f"(host) {t_host:.3f} s, {t_host / len(got) * 1e3:.3f} ms a tile; every tile equal "
+            f"to decode_bbox's and the source on the card | {card}")
+        del got, host
+    profile_bbox(st, box)
+    ref = {f.frame_id: t for f, t in st.decode_bbox_device(box)}
+    t0 = time.perf_counter()
+    seen = []
+    for f, tile in st.iter_bbox_to_device(box):
+        if not torch.equal(tile, ref[f.frame_id]):
+            raise AssertionError(f"iter_bbox_to_device: tile {f.frame_id} differs")
+        seen.append(f.frame_id)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if sorted(seen) != sorted(ref):
+        raise AssertionError(f"iter_bbox_to_device gave tiles {seen}")
+    log(f"iter_bbox_to_device, 4x4-tile bbox: {len(seen)} tiles in {dt:.3f} s "
+        f"({dt / len(seen) * 1e3:.3f} ms a tile), equal to decode_bbox_device's | {card}")
+
+
+def profile_bbox(st, bbox) -> None:
+    """Host time by decode stage and the device's busy share over one
+    ``decode_bbox_device`` (torch.profiler); informational only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = len(st.decode_bbox_device(bbox))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in averages
+                 if e.device_type.name == "CUDA" and not e.key.startswith("frtt."))
+    stages = ", ".join(f"{e.key} {e.cpu_time_total / 1e3 / n:.3f}" for e in sorted(
+        averages, key=lambda e: e.key) if e.key.startswith("frtt.decode") and
+        e.device_type.name == "CPU")
+    log(f"bbox decode profile ({n} tiles): wall {wall * 1e3 / n:.3f} ms a tile under the "
+        f"profiler, device kernel time {dev_us / 1e3 / n:.3f} ms a tile "
+        f"({100 * dev_us / 1e6 / wall:.1f}% busy); host ms a tile by stage: {stages}")
+
+
+def streaming_phase(band: np.ndarray, work, card: str, dev) -> None:
+    """Phase 17: the streaming container of the phase-15 GeoTIFF at level 5
+    on the card (timed, launch counts); each tile of the 4 x 4-tile bbox
+    read back (``read_streaming_tile``) and decoded on the device route,
+    equal to its window of the source."""
+    from flac_raster_tpu_torch import RasterFLACConverter, SpatialIndex
+    from flac_raster_tpu_torch.codec import device_decoder
+    from flac_raster_tpu_torch.models.streaming import (
+        create_streaming_flac, load_streaming_index, read_streaming_tile,
+    )
+
+    path = work / "band.stream.flac"
+    _, dt, launches = run_path("the streaming container", lambda: create_streaming_flac(
+        work / "band.tif", path, tile_size=SPATIAL_TILE, compression_level=LEVEL,
+        device="cuda"), encode_kernels())
+    sindex = load_streaming_index(path)
+    log(f"streaming container: {len(sindex.frames)} tiles, {path.stat().st_size} bytes, "
+        f"{dt:.3f} s, {band.nbytes / dt / 1e6:.2f} MB/s raw, launches {launches} | {card}")
+    conv = RasterFLACConverter(device="cuda")
+    ids = {f.frame_id for f in SpatialIndex.from_dict(sindex.meta).query_bbox(tile_box(2, 3, 4, 4))}
+    frames = [fr for fr in sindex.frames if fr["frame_id"] in ids]
+    routes = device_decoder.HOST_ROUTES
+
+    def read_and_decode():
+        return [conv.decode_bytes_device(read_streaming_tile(path, sindex, fr))[0]
+                for fr in frames]
+
+    tiles, dt, launches = run_path("the streaming tiles' decode", read_and_decode,
+                                   DECODE_KERNELS["full"])
+    if device_decoder.HOST_ROUTES != routes or len(tiles) != 16:
+        raise AssertionError("a streaming tile took the host route")
+    for fr, tile in zip(frames, tiles):
+        w = fr["window"]
+        want = band[None, w["row_off"] : w["row_off"] + w["height"],
+                    w["col_off"] : w["col_off"] + w["width"]]
+        if not same_on_card(tile, want, dev):
+            raise AssertionError(f"streaming tile {fr['frame_id']} differs")
+    log(f"streaming tiles of the 4x4-tile bbox: read and decoded on the device route in "
+        f"{dt:.3f} s ({dt / len(tiles) * 1e3:.3f} ms a tile), launches {launches}, each equal "
+        f"to the source on the card | {card}")
+
+
+class CountingFile:
+    """A local byte source for ``decode_rows_ranged``: ``read_range(start,
+    end)`` with an inclusive end and ``file_size``, counting the bytes it
+    serves (what a remote read would fetch)."""
+
+    def __init__(self, path):
+        self.path, self.file_size, self.served = path, path.stat().st_size, 0
+
+    def read_range(self, start: int, end: int) -> bytes:
+        with open(self.path, "rb") as f:
+            f.seek(start)
+            data = f.read(end - start + 1)
+        self.served += len(data)
+        return data
+
+
+ROWS = (4000, 512)   # phase 18's row window of the 8192x8192 scene
+
+
+def rows_phase(scene: np.ndarray, path, card: str, dev) -> None:
+    """Phase 18: rows 4000-4511 of the phase-3 file on disk through
+    ``decode_rows`` and ``decode_rows_ranged`` (a counting byte source),
+    equal to each other and to the scene, under 10% of the file fetched;
+    ``decode_flac_device(sample_range=...)`` of the same samples on the
+    device route equal to ``decode_flac_range``'s.  All timed."""
+    import torch
+
+    from flac_raster_tpu_torch import RasterFLACConverter, decode_flac_device, decode_flac_range
+
+    row0, n_rows = ROWS
+    width = scene.shape[-1]
+    want = scene[None, row0 : row0 + n_rows]
+    conv = RasterFLACConverter(device="cuda")
+    t0 = time.perf_counter()
+    rows, _ = conv.decode_rows(path.read_bytes(), row0, n_rows)
+    t_rows = time.perf_counter() - t0
+    src = CountingFile(path)
+    t0 = time.perf_counter()
+    ranged, _, fetched = conv.decode_rows_ranged(src, row0, n_rows)
+    t_ranged = time.perf_counter() - t0
+    if not (np.array_equal(rows, want) and np.array_equal(ranged, want)):
+        raise AssertionError("the row window differs from the scene's rows")
+    if fetched != src.served or fetched >= 0.1 * src.file_size:
+        raise AssertionError(f"decode_rows_ranged fetched {fetched} of {src.file_size} bytes")
+    log(f"rows {row0}-{row0 + n_rows - 1}: decode_rows {t_rows * 1e3:.1f} ms (the file read "
+        f"from disk included), decode_rows_ranged {t_ranged * 1e3:.1f} ms, {fetched} bytes "
+        f"fetched of {src.file_size} ({100 * fetched / src.file_size:.2f}%); both equal to the "
+        f"scene | {card}")
+
+    blob = path.read_bytes()
+    span = (row0 * width, n_rows * width)
+    decode_flac_device(blob, sample_range=span, device=dev)     # warm-up
+    t0 = time.perf_counter()
+    host = decode_flac_range(blob, *span)
+    t_host = time.perf_counter() - t0
+    dec, dt, launches = run_path("the sample-range decode", lambda: decode_flac_device(
+        blob, sample_range=span, device=dev), DECODE_KERNELS["full"])
+    if dec.route != "device" or not torch.equal(dec.samples,
+                                                torch.from_numpy(host.samples).to(dev)):
+        raise AssertionError(f"the sample-range decode ({dec.route}) differs from the host's")
+    log(f"sample range {span}: decode_flac_device {dt * 1e3:.1f} ms on the device route "
+        f"(launches {launches}), decode_flac_range {t_host * 1e3:.1f} ms on the host; equal | "
+        f"{card}")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+    work_dir = tempfile.TemporaryDirectory(prefix="chip_smoke-")
+    try:
+        return run(Path(work_dir.name), t_start)
+    finally:
+        work_dir.cleanup()
+
+
+def run(work: Path, t_start: float) -> int:
+    import torch
+
     from flac_raster_tpu_torch import RasterFLACConverter, _build, native
     from flac_raster_tpu_torch.ops import device_emit, pack
 
-    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = smi()
     kind = torch.cuda.get_device_name(0)
@@ -1205,6 +1557,8 @@ def main() -> int:
         f"{device_emit.SAMPLE_PACK_VERSION})")
     conv = RasterFLACConverter(device="cuda", compute_md5=False)
     blob = encode_path(conv, scene, LEVEL, "level-5", card)
+    scene_file = work / "scene.flac"        # phase 18 reads it from disk
+    scene_file.write_bytes(blob)
     profile_encode(conv, scene)
 
     log("phase 4: round trip")
@@ -1301,11 +1655,24 @@ def main() -> int:
     log("phase 13: device-resident encode, the same rasters already on the card")
     device_resident_phase(scene, "level-5", card, dev)
     device_resident_phase(make_dem(DEM_SIZE), "wide", card, dev, wide=True)
-    del scene
     torch.cuda.empty_cache()
 
     log("phase 14: files as the reference system writes them")
     reference_phase(dev, card)
+
+    band = make_raster(TAIL_SIZE)
+    log(f"phase 15: GeoTIFF in and out, the {TAIL_SIZE}x{TAIL_SIZE} uint16 band")
+    geotiff_phase(band, work, card)
+    log(f"phase 16: the spatial file, level {LEVEL}, tiles of {SPATIAL_TILE}")
+    spatial_phase(band, work, card, dev)
+    torch.cuda.empty_cache()
+    log(f"phase 17: the streaming container, level {LEVEL}, tiles of {SPATIAL_TILE}")
+    streaming_phase(band, work, card, dev)
+    del band
+    torch.cuda.empty_cache()
+    log(f"phase 18: rows {ROWS[0]}-{sum(ROWS) - 1} of the phase-3 file")
+    rows_phase(scene, scene_file, card, dev)
+    del scene
 
     for k in kernels:
         k["launches"] = TOTAL_LAUNCHES.get(k["name"], 0)

@@ -1,8 +1,10 @@
 """FLAC stream decoder of the port (host).
 
 The port of ``flac_raster_tpu.codec.decoder.decode_flac``
-(``decoder.py:226-388``).  The metadata is parsed in Python.  A stream whose
-STREAMINFO gives its sample count decodes in one pass of the host C decoder
+(``decoder.py:226-388``) and ``decode_flac_range`` (``:391-471``: random
+access through the FRTP layout index).  The metadata is parsed in Python.
+A stream whose STREAMINFO gives its sample count decodes in one pass of
+the host C decoder
 (``native.decode_frames``), each frame's CRC-16 checked with
 ``native.crc16_spans``.  Any other stream -- a count of 0, as libFLAC writes
 when it cannot seek back (the reference system's files), or one the native
@@ -27,7 +29,9 @@ from .. import native
 from ..models.flac_format import (
     BLOCK_VORBIS_COMMENT,
     StreamInfo,
+    build_flac_header,
     parse_flac_metadata,
+    parse_layout_block,
     parse_vorbis_comments,
 )
 from ..ops.bitpack import BitReader, bits_of, read_kbits_at
@@ -35,7 +39,8 @@ from ..ops.crc import crc8
 from ..ops.fixed import fixed_restore
 from ..ops.lpc import lpc_restore_batch
 
-__all__ = ["decode_flac", "DecodedStream", "md5_of_samples"]
+__all__ = ["decode_flac", "decode_flac_range", "decode_frame_span", "covering_frames",
+           "DecodedStream", "md5_of_samples"]
 
 
 @dataclass
@@ -280,10 +285,7 @@ def decode_flac(
     """
     buf = bytes(data)
     streaminfo, blocks, frame_start = parse_flac_metadata(buf)
-    vendor, comments = "", {}
-    for b in blocks:
-        if b.block_type == BLOCK_VORBIS_COMMENT:
-            vendor, comments = parse_vorbis_comments(b.data)
+    vendor, comments = _comments_of(blocks)
     arr = np.frombuffer(buf, dtype=np.uint8)
     got = None
     if streaminfo.total_samples and streaminfo.channels:
@@ -305,6 +307,87 @@ def decode_flac(
         if md5_of_samples(out, streaminfo.bits_per_sample) != streaminfo.md5:
             raise ValueError("decoded audio MD5 mismatch")
     return DecodedStream(out, streaminfo, comments, vendor)
+
+
+def _comments_of(blocks) -> tuple[str, dict[str, list[str]]]:
+    vendor, comments = "", {}
+    for b in blocks:
+        if b.block_type == BLOCK_VORBIS_COMMENT:
+            vendor, comments = parse_vorbis_comments(b.data)
+    return vendor, comments
+
+
+def decode_flac_range(
+    data: bytes | np.ndarray,
+    start_sample: int,
+    num_samples: int | None = None,
+    verify_crc: bool = True,
+) -> DecodedStream:
+    """Decode only the frames covering ``[start_sample, start_sample + num)``.
+
+    The FRTP layout block maps the sample window to a frame byte span, and
+    only that span is parsed, wrapped in a minimal stream.  A stream with a
+    sample count of 0, no layout block, a variable blocksize or a layout
+    that does not end at the stream's end decodes whole and is sliced, as
+    the JAX package does.  Returns a DecodedStream whose ``samples`` holds
+    exactly the requested rows; ``streaminfo`` and ``comments`` are the
+    whole stream's.
+    """
+    buf = bytes(data)
+    si, blocks, frame_start = parse_flac_metadata(buf)
+    total = si.total_samples
+    if start_sample < 0 or (num_samples is not None and num_samples < 0):
+        raise ValueError("sample range outside the stream")
+    if total == 0:
+        # no length to index against
+        dec = decode_flac(buf, verify_crc=verify_crc)
+        end = None if num_samples is None else start_sample + num_samples
+        dec.samples = dec.samples[start_sample:end]
+        return dec
+    if num_samples is None:
+        num_samples = max(total - start_sample, 0)
+    if start_sample + num_samples > total:
+        raise ValueError("sample range outside the stream")
+    vendor, comments = _comments_of(blocks)
+    if num_samples == 0:
+        return DecodedStream(np.empty((0, si.channels), np.int32), si, comments, vendor)
+
+    layout = parse_layout_block(blocks)
+    N = si.max_blocksize
+    offsets = None if layout is None else layout.absolute_offsets(frame_start)
+    if layout is None or si.min_blocksize != N or N == 0 or offsets[-1] != len(buf):
+        dec = decode_flac(buf, verify_crc=verify_crc)
+        dec.samples = dec.samples[start_sample : start_sample + num_samples]
+        return dec
+    f0, f1 = covering_frames(start_sample, num_samples, N, len(layout.sizes))
+    samples = decode_frame_span(buf[offsets[f0] : offsets[f1]], si, f0, f1, start_sample,
+                                num_samples, verify_crc)
+    return DecodedStream(samples, si, comments, vendor)
+
+
+def covering_frames(start_sample: int, num_samples: int, blocksize: int,
+                    n_frames: int) -> tuple[int, int]:
+    """[f0, f1): the frames of a fixed-blocksize stream that cover the
+    samples [start_sample, start_sample + num_samples)."""
+    return (min(start_sample // blocksize, n_frames - 1),
+            min(-(-(start_sample + num_samples) // blocksize), n_frames))
+
+
+def decode_frame_span(span: bytes, si: StreamInfo, f0: int, f1: int, start_sample: int,
+                      num_samples: int, verify_crc: bool = True) -> np.ndarray:
+    """Samples [start_sample, start_sample + num_samples) of a
+    fixed-blocksize stream from the bytes of its frames [f0, f1).  Frame
+    numbers are informational in such a stream, so the span decodes as a
+    stream of its own behind a minimal header (STREAMINFO only)."""
+    N = si.max_blocksize
+    mini_si = StreamInfo(
+        min_blocksize=si.min_blocksize, max_blocksize=N, min_framesize=0, max_framesize=0,
+        sample_rate=si.sample_rate, channels=si.channels, bits_per_sample=si.bits_per_sample,
+        total_samples=min(si.total_samples, f1 * N) - f0 * N,
+    )
+    samples = decode_flac(build_flac_header(mini_si) + span, verify_crc=verify_crc).samples
+    lo = start_sample - f0 * N
+    return samples[lo : lo + num_samples]
 
 
 def md5_of_samples(samples: np.ndarray, bits_per_sample: int) -> bytes:

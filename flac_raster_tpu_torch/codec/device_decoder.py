@@ -32,18 +32,22 @@ from torch.profiler import record_function
 
 from .. import native
 from ..models.flac_format import (
-    BLOCK_VORBIS_COMMENT,
     LAYOUT_FLAG_TOK32,
     StreamInfo,
-    build_flac_header,
     parse_flac_metadata,
     parse_layout_block,
-    parse_vorbis_comments,
 )
 from ..ops.device_codec import MAX_DEVICE_BPS
 from ..ops.device_decode import SCAN_ENGINES, decode_frames_device
 from ..ops.gather import gather_windows
-from .decoder import DecodedStream, decode_flac, md5_of_samples
+from .decoder import (
+    DecodedStream,
+    _comments_of,
+    decode_flac,
+    decode_flac_range,
+    decode_frame_span,
+    md5_of_samples,
+)
 from .device_encoder import resolve_device
 from .encoder import _blocksize_header
 
@@ -63,12 +67,11 @@ def _host_route(buf, verify_crc, reason, sample_range, dev) -> DecodedStream:
     global HOST_ROUTES
     HOST_ROUTES += 1
     logger.info("device decode takes the host route: %s", reason)
-    dec = decode_flac(buf, verify_crc=verify_crc)
-    samples = dec.samples
-    if sample_range is not None:
-        s0, cnt = sample_range
-        samples = samples[s0 : s0 + cnt]
-    dec.samples = torch.from_numpy(np.ascontiguousarray(samples)).to(dev)
+    if sample_range is None:
+        dec = decode_flac(buf, verify_crc=verify_crc)
+    else:   # only the frames that cover the range
+        dec = decode_flac_range(buf, *sample_range, verify_crc=verify_crc)
+    dec.samples = torch.from_numpy(np.ascontiguousarray(dec.samples)).to(dev)
     dec.route = f"host: {reason}"
     return dec
 
@@ -166,10 +169,7 @@ def decode_flac_device(
 
     buf = bytes(data)
     si, blocks, frame_start = parse_flac_metadata(buf)
-    vendor, comments = "", {}
-    for b in blocks:
-        if b.block_type == BLOCK_VORBIS_COMMENT:
-            vendor, comments = parse_vorbis_comments(b.data)
+    vendor, comments = _comments_of(blocks)
     layout = parse_layout_block(blocks)
     N, C, bps, total = si.max_blocksize, si.channels, si.bits_per_sample, si.total_samples
     if sample_range is not None:
@@ -255,13 +255,8 @@ def decode_flac_device(
         # the tail frame is a partial block: decode it on the host, wrapped
         # in a minimal stream
         with record_function("frtt.decode.tail"):
-            tail_si = StreamInfo(
-                min_blocksize=si.min_blocksize, max_blocksize=si.max_blocksize,
-                min_framesize=0, max_framesize=0, sample_rate=si.sample_rate,
-                channels=C, bits_per_sample=bps, total_samples=tail_samples,
-            )
-            mini = build_flac_header(tail_si) + buf[offsets[full_frames] :]
-            tail = decode_flac(mini, verify_crc=verify_crc).samples
+            tail = decode_frame_span(buf[offsets[full_frames] :], si, full_frames,
+                                     full_frames + 1, full_frames * N, tail_samples, verify_crc)
             out[n_r * N :] = torch.from_numpy(tail).to(dev)
 
     lo = s0 - rf0 * N

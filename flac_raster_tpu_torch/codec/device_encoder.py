@@ -18,6 +18,11 @@ encode_array_device``): the chunks are then slices of it, and only the rows
 of a tail frame or of a short stream, and the MD5's PCM where asked for,
 come back to the host.
 
+``encode_flac_batch_device`` runs the same chunk loop over the full frames
+of a batch of same-shaped streams (the tiles of ``converter.
+encode_array_batch``), each stream's frames numbered from 0, and cuts each
+stream's bytes out of the chunks at its frames' cumulative size.
+
 The loop is deliberately simple and sequential -- copy in, compute, copy
 out, one chunk after another.  Overlapping those stages is later work.
 """
@@ -36,7 +41,8 @@ from . import host_encoder
 from .decoder import md5_of_samples
 from .encoder import _BPS_CODES, _SAMPLE_RATE_CODES, EncoderConfig, _blocksize_header
 
-__all__ = ["encode_flac_device", "resolve_device", "np_dtype", "to_host", "as_int64"]
+__all__ = ["encode_flac_device", "encode_flac_batch_device", "resolve_device", "np_dtype",
+           "to_host", "as_int64"]
 
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
 
@@ -102,6 +108,154 @@ def _patch_crcs(buf: np.ndarray, frame_bits: np.ndarray, hdr_bits: np.ndarray) -
     native.crc16_patch(buf, frame_start, (frame_bits >> 3) - 2)
 
 
+def _check_stream(channels: int, bits_per_sample: int, dtype, blocksize: int) -> None:
+    if not 1 <= channels <= 8:
+        raise ValueError("FLAC supports 1..8 channels")
+    if bits_per_sample not in _BPS_CODES:
+        raise ValueError(f"unsupported bits_per_sample {bits_per_sample}")
+    if not np.issubdtype(dtype, np.integer):
+        raise ValueError(f"samples must be integers, not {dtype}")
+    if (blocksize & (blocksize - 1)) != 0 or blocksize % 64 != 0:
+        raise NotImplementedError(
+            f"blocksize {blocksize} needs the host encoder, which is not ported "
+            "yet (ROADMAP Queue 1 item 12)"
+        )
+
+
+def _check_range(samples, dtype, bits_per_sample: int, zero_point: int) -> None:
+    """Raise when the samples (or, under ``zero_point``, their dtype's whole
+    range: the subtraction happens on the device) exceed the bit depth."""
+    lo = -(1 << (bits_per_sample - 1))
+    hi = (1 << (bits_per_sample - 1)) - 1
+    if zero_point:
+        info = np.iinfo(dtype)
+        if info.min - zero_point < lo or info.max - zero_point > hi:
+            raise ValueError("dtype range exceeds bits_per_sample under zero_point")
+        return
+    if isinstance(samples, torch.Tensor):   # a device reduce and a two-scalar pull
+        wide = as_int64(samples)
+        s_min, s_max = torch.stack([wide.amin(), wide.amax()]).tolist()
+        del wide
+    else:
+        s_min, s_max = int(samples.min()), int(samples.max())
+    if s_min < lo or s_max > hi:
+        raise ValueError("samples exceed bits_per_sample range")
+
+
+def _frame_layout(blocksize: int, bits_per_sample: int, sample_rate: int, channels: int,
+                  cfg: EncoderConfig) -> dict:
+    """``plan_and_emit``'s keywords for a stream's full frames."""
+    bs_code, bs_tail_val, bs_tail_bits = _blocksize_header(blocksize)
+    return dict(
+        blocksize=blocksize,
+        bps=bits_per_sample,
+        sr_code=_SAMPLE_RATE_CODES.get(sample_rate, 0),
+        bps_code=_BPS_CODES[bits_per_sample],
+        bs_code=bs_code,
+        bs_tail_val=bs_tail_val,
+        bs_tail_bits=bs_tail_bits,
+        max_lpc_order=cfg.max_lpc_order,
+        max_partition_order=min(cfg.max_partition_order, 6),
+        use_lpc=cfg.use_lpc,
+        apodizations=cfg.apodizations,
+        mid_side=midside_ok(channels, bits_per_sample, cfg.mid_side, device=True),
+    )
+
+
+def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layout: dict,
+                      zero_point: int, chunk: int, dev: torch.device):
+    """Plan and emit full frames on ``dev``, ``chunk`` frames at a time.
+
+    ``frames_of(g0, g1)`` gives frames [g0, g1) as a (g1 - g0, C, N)
+    integer tensor on ``dev``; ``frame_numbers`` (one per frame) go into
+    the headers.  Returns (the frames' bytes, CRCs patched; each frame's
+    size in bytes; its first C - 1 subframes' sizes in bits).
+    """
+    blocksize, bps = layout["blocksize"], layout["bps"]
+    frame_numbers = np.asarray(frame_numbers, np.int64)
+    numbers_dev = torch.from_numpy(frame_numbers).to(dev)
+    pinned = None
+    chunks: list[bytes] = []
+    sizes: list[np.ndarray] = []
+    subs: list[np.ndarray] = []
+    # record_function ranges name the stages in a torch.profiler trace
+    # (host time per stage; chip_smoke.py prints them)
+    for g0 in range(0, len(frame_numbers), chunk):
+        g1 = min(g0 + chunk, len(frame_numbers))
+        with record_function("frtt.upload"):
+            xc = frames_of(g0, g1)
+        n_words = worst_case_words(g1 - g0, channels, blocksize, bps + layout["mid_side"])
+        with record_function("frtt.plan_and_emit"):
+            out = plan_and_emit(xc, numbers_dev[g0:g1], n_words=n_words,
+                                zero_point=zero_point, **layout)
+
+        with record_function("frtt.readback"):  # waits for the chunk's compute
+            # frame bits and the pack's err flag in one copy
+            head = torch.cat([out["frame_bits"], out["err"].long()]).cpu().numpy()
+            frame_bits, err = head[:-1], int(head[-1])
+            if err:
+                raise RuntimeError(
+                    f"frames {g0}..{g1 - 1}: the sample stream broke the precondition "
+                    "of the pack kernel; its words are not valid"
+                )
+            total_bits = int(frame_bits.sum())
+            used = (total_bits + 31) // 32
+            if dev.type == "cuda":
+                if pinned is None or pinned.numel() < used:
+                    pinned = torch.empty(n_words, dtype=torch.int32, pin_memory=True)
+                host = pinned[:used]
+                host.copy_(out["words"][:used])
+                words = host.numpy()
+            else:
+                words = out["words"][:used].numpy()
+        with record_function("frtt.host_crc"):
+            buf = words.view(np.uint32).astype(">u4").view(np.uint8)[: (total_bits + 7) // 8]
+            buf = np.ascontiguousarray(buf)
+            fi = frame_numbers[g0:g1]
+            n_bytes = np.sum(fi[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
+            _patch_crcs(buf, frame_bits.astype(np.int64),
+                        32 + n_bytes * 8 + layout["bs_tail_bits"])
+        chunks.append(buf.tobytes())
+        sizes.append(frame_bits.astype(np.int64) >> 3)
+        subs.append(out["subframe_bits"][:, :-1].cpu().numpy().astype(np.int64))
+    return b"".join(chunks), np.concatenate(sizes), np.concatenate(subs)
+
+
+def _assemble_stream(frames: bytes, sizes: np.ndarray, subs: np.ndarray, tail, n: int,
+                     channels: int, sample_rate: int, bits_per_sample: int, blocksize: int,
+                     cfg: EncoderConfig, md5: bytes, comments, vendor: str,
+                     padding: int) -> bytes:
+    """One stream from its full frames' bytes, sizes and subframe sizes,
+    and the (bs, C) int64 PCM of its partial tail frame (None without
+    one): the tail frame is encoded on the host; STREAMINFO and the FRTP v2
+    layout block head the stream."""
+    if tail is not None:
+        tail_bytes = host_encoder.emit_tail_frame(
+            tail, len(sizes), bits_per_sample, _SAMPLE_RATE_CODES.get(sample_rate, 0),
+            _BPS_CODES[bits_per_sample], cfg)
+        frames += tail_bytes
+        sizes = np.append(sizes, len(tail_bytes))
+        subs = np.concatenate([subs, np.zeros((1, channels - 1), np.int64)])  # no layout entry
+    streaminfo = StreamInfo(
+        min_blocksize=blocksize,
+        max_blocksize=blocksize,
+        min_framesize=int(sizes.min()),
+        max_framesize=int(sizes.max()),
+        sample_rate=sample_rate,
+        channels=channels,
+        bits_per_sample=bits_per_sample,
+        total_samples=n,
+        md5=md5,
+    )
+    header = build_flac_header(
+        streaminfo, comments, vendor, padding,
+        frame_sizes=sizes,
+        sub_bits=subs if channels > 1 else None,
+        layout_flags=LAYOUT_FLAG_TOK32,
+    )
+    return bytes(header) + frames
+
+
 def encode_flac_device(
     samples: "np.ndarray | torch.Tensor",
     sample_rate: int,
@@ -155,143 +309,110 @@ def encode_flac_device(
     if samples.ndim == 1:
         samples = samples[:, None]
     n, channels = samples.shape
-    if not 1 <= channels <= 8:
-        raise ValueError("FLAC supports 1..8 channels")
-    if bits_per_sample not in _BPS_CODES:
-        raise ValueError(f"unsupported bits_per_sample {bits_per_sample}")
-    if not np.issubdtype(dtype, np.integer):
-        raise ValueError(f"samples must be integers, not {dtype}")
-    if (blocksize & (blocksize - 1)) != 0 or blocksize % 64 != 0:
-        raise NotImplementedError(
-            f"blocksize {blocksize} needs the host encoder, which is not ported "
-            "yet (ROADMAP Queue 1 item 12)"
-        )
+    _check_stream(channels, bits_per_sample, dtype, blocksize)
     cfg = EncoderConfig.from_level(compression_level)
-    sr_code = _SAMPLE_RATE_CODES.get(sample_rate, 0)
-    bps_code = _BPS_CODES[bits_per_sample]
-    lo = -(1 << (bits_per_sample - 1))
-    hi = (1 << (bits_per_sample - 1)) - 1
     n_full = n // blocksize
     if n_full == 0:
         # one short frame: the scalar host encoder, as the JAX package
         pcm = (to_host(samples) if on_device else samples).astype(np.int64) - zero_point
-        if n and (int(pcm.min()) < lo or int(pcm.max()) > hi):
-            raise ValueError("samples exceed bits_per_sample range")
+        if n:
+            _check_range(pcm, pcm.dtype, bits_per_sample, 0)
         return host_encoder.encode_flac(
             pcm, sample_rate, bits_per_sample, compression_level, blocksize, comments,
-            vendor, compute_md5, padding, sr_code, bps_code,
+            vendor, compute_md5, padding, _SAMPLE_RATE_CODES.get(sample_rate, 0),
+            _BPS_CODES[bits_per_sample],
         )
-    use_ms = midside_ok(channels, bits_per_sample, cfg.mid_side, device=True)
-
-    if zero_point:
-        # the subtraction happens on the device, so the dtype's whole range
-        # must fit
-        info = np.iinfo(dtype)
-        if info.min - zero_point < lo or info.max - zero_point > hi:
-            raise ValueError("dtype range exceeds bits_per_sample under zero_point")
-    else:
-        if on_device:   # a device reduce and a two-scalar pull
-            wide = as_int64(samples)
-            s_min, s_max = torch.stack([wide.amin(), wide.amax()]).tolist()
-            del wide
-        else:
-            s_min, s_max = int(samples.min()), int(samples.max())
-        if s_min < lo or s_max > hi:
-            raise ValueError("samples exceed bits_per_sample range")
+    _check_range(samples, dtype, bits_per_sample, zero_point)
     if not on_device:
         samples = np.ascontiguousarray(samples)
 
-    bs_code, bs_tail_val, bs_tail_bits = _blocksize_header(blocksize)
-    layout = dict(
-        blocksize=blocksize,
-        bps=bits_per_sample,
-        sr_code=sr_code,
-        bps_code=bps_code,
-        bs_code=bs_code,
-        bs_tail_val=bs_tail_val,
-        bs_tail_bits=bs_tail_bits,
-        max_lpc_order=cfg.max_lpc_order,
-        max_partition_order=min(cfg.max_partition_order, 6),
-        use_lpc=cfg.use_lpc,
-        apodizations=cfg.apodizations,
-        mid_side=use_ms,
-    )
+    def frames_of(g0, g1):
+        xc = samples[g0 * blocksize : g1 * blocksize]
+        xc = xc if on_device else _upload(xc, dev)
+        return xc.reshape(g1 - g0, blocksize, channels).permute(0, 2, 1)
 
-    # record_function ranges name the stages in a torch.profiler trace
-    # (host time per stage; chip_smoke.py prints them)
-    chunk = max(1, int(plan_chunk_frames))
-    pinned = None
-    chunks: list[bytes] = []
-    sizes: list[np.ndarray] = []
-    subs: list[np.ndarray] = []
-    for c0 in range(0, n_full, chunk):
-        c1 = min(c0 + chunk, n_full)
-        Fc = c1 - c0
-        with record_function("frtt.upload"):
-            xc = samples[c0 * blocksize : c1 * blocksize]
-            xc = xc if on_device else _upload(xc, dev)
-            xc = xc.reshape(Fc, blocksize, channels).permute(0, 2, 1)
-        n_words = worst_case_words(Fc, channels, blocksize, bits_per_sample + use_ms)
-        with record_function("frtt.plan_and_emit"):
-            out = plan_and_emit(xc, c0, n_words=n_words, zero_point=zero_point, **layout)
-
-        with record_function("frtt.readback"):  # waits for the chunk's compute
-            # frame bits and the pack's err flag in one copy
-            head = torch.cat([out["frame_bits"], out["err"].long()]).cpu().numpy()
-            frame_bits, err = head[:-1], int(head[-1])
-            if err:
-                raise RuntimeError(
-                    f"frames {c0}..{c1 - 1}: the sample stream broke the precondition "
-                    "of the pack kernel; its words are not valid"
-                )
-            total_bits = int(frame_bits.sum())
-            used = (total_bits + 31) // 32
-            if dev.type == "cuda":
-                if pinned is None or pinned.numel() < used:
-                    pinned = torch.empty(n_words, dtype=torch.int32, pin_memory=True)
-                host = pinned[:used]
-                host.copy_(out["words"][:used])
-                words = host.numpy()
-            else:
-                words = out["words"][:used].numpy()
-        with record_function("frtt.host_crc"):
-            buf = words.view(np.uint32).astype(">u4").view(np.uint8)[: (total_bits + 7) // 8]
-            buf = np.ascontiguousarray(buf)
-            fi = np.arange(c0, c1, dtype=np.int64)
-            n_bytes = np.sum(fi[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
-            _patch_crcs(buf, frame_bits.astype(np.int64), 32 + n_bytes * 8 + bs_tail_bits)
-        chunks.append(buf.tobytes())
-        sizes.append(frame_bits.astype(np.int64) >> 3)
-        subs.append(out["subframe_bits"][:, :-1].cpu().numpy().astype(np.int64))
-
+    layout = _frame_layout(blocksize, bits_per_sample, sample_rate, channels, cfg)
+    frames, sizes, subs = _emit_full_frames(
+        frames_of, np.arange(n_full), channels, layout, zero_point,
+        max(1, int(plan_chunk_frames)), dev)
+    tail = None
     if n_full * blocksize < n:
         tail = samples[n_full * blocksize :]
         tail = (to_host(tail) if on_device else tail).astype(np.int64) - zero_point
-        chunks.append(host_encoder.emit_tail_frame(
-            tail, n_full, bits_per_sample, sr_code, bps_code, cfg))
-        sizes.append(np.array([len(chunks[-1])], np.int64))
-        subs.append(np.zeros((1, channels - 1), np.int64))   # no layout entry
-
-    all_sizes = np.concatenate(sizes)
     md5 = b"\x00" * 16
     if compute_md5:
         pcm = to_host(samples) if on_device else samples
         md5 = md5_of_samples(pcm.astype(np.int64) - zero_point, bits_per_sample)
-    streaminfo = StreamInfo(
-        min_blocksize=blocksize,
-        max_blocksize=blocksize,
-        min_framesize=int(all_sizes.min()),
-        max_framesize=int(all_sizes.max()),
-        sample_rate=sample_rate,
-        channels=channels,
-        bits_per_sample=bits_per_sample,
-        total_samples=n,
-        md5=md5,
-    )
-    header = build_flac_header(
-        streaminfo, comments, vendor, padding,
-        frame_sizes=all_sizes,
-        sub_bits=np.concatenate(subs) if channels > 1 else None,
-        layout_flags=LAYOUT_FLAG_TOK32,
-    )
-    return bytes(header) + b"".join(chunks)
+    return _assemble_stream(frames, sizes, subs, tail, n, channels, sample_rate,
+                            bits_per_sample, blocksize, cfg, md5, comments, vendor, padding)
+
+
+def encode_flac_batch_device(
+    samples_batch: np.ndarray,
+    sample_rate: int,
+    bits_per_sample: int,
+    compression_level: int = 5,
+    blocksize: int = 4096,
+    comments_list=None,
+    vendor: str = "flac-raster-tpu",
+    compute_md5: bool = True,
+    plan_chunk_frames: int = 2048,
+    zero_point: int = 0,
+    device="cuda",
+) -> list[bytes]:
+    """Encode T same-shaped streams, (T, n, channels) integer samples, with
+    their full frames planned and emitted together on ``device``.
+
+    The single-device branch of the JAX ``fast_encoder.encode_flac_batch``:
+    the full frames of all T streams go through the ``plan_and_emit`` chunk
+    loop in chunks of at most ``plan_chunk_frames`` frames across streams,
+    each stream's frames numbered from 0.  Frames are byte-aligned, so each
+    stream's bytes are a slice of the chunks' at its frames' cumulative
+    size.  Each stream's partial tail frame is encoded on the host.  A batch
+    with no full frame goes through ``encode_flac_device`` stream by
+    stream, as the JAX branch does.  Stream t equals ``encode_flac_device``
+    of ``samples_batch[t]`` with ``comments_list[t]``.
+
+    Returns the T FLAC streams.
+    """
+    samples_batch = np.asarray(samples_batch)
+    if samples_batch.ndim == 2:
+        samples_batch = samples_batch[:, :, None]
+    T, n, channels = samples_batch.shape
+    if comments_list is None:
+        comments_list = [None] * T
+    n_full = n // blocksize
+    kw = dict(compression_level=compression_level, blocksize=blocksize, vendor=vendor,
+              compute_md5=compute_md5, plan_chunk_frames=plan_chunk_frames,
+              zero_point=zero_point, device=device)
+    if T == 0 or n_full == 0:
+        return [encode_flac_device(samples_batch[t], sample_rate, bits_per_sample,
+                                   comments=comments_list[t], **kw) for t in range(T)]
+    dev = resolve_device(device)
+    _check_stream(channels, bits_per_sample, samples_batch.dtype, blocksize)
+    _check_range(samples_batch, samples_batch.dtype, bits_per_sample, zero_point)
+    cfg = EncoderConfig.from_level(compression_level)
+    # (T * n_full, N, C): a view when n is a whole number of frames
+    full = samples_batch[:, : n_full * blocksize].reshape(T * n_full, blocksize, channels)
+
+    def frames_of(g0, g1):
+        return _upload(np.ascontiguousarray(full[g0:g1]), dev).permute(0, 2, 1)
+
+    layout = _frame_layout(blocksize, bits_per_sample, sample_rate, channels, cfg)
+    frames, sizes, subs = _emit_full_frames(
+        frames_of, np.tile(np.arange(n_full), T), channels, layout, zero_point,
+        max(1, int(plan_chunk_frames)), dev)
+    ends = np.concatenate([[0], np.cumsum(sizes)])
+    out = []
+    for t in range(T):
+        f0, f1 = t * n_full, (t + 1) * n_full
+        tail = None
+        if n_full * blocksize < n:
+            tail = samples_batch[t, n_full * blocksize :].astype(np.int64) - zero_point
+        md5 = b"\x00" * 16
+        if compute_md5:
+            md5 = md5_of_samples(samples_batch[t].astype(np.int64) - zero_point, bits_per_sample)
+        out.append(_assemble_stream(
+            frames[ends[f0] : ends[f1]], sizes[f0:f1], subs[f0:f1], tail, n, channels,
+            sample_rate, bits_per_sample, blocksize, cfg, md5, comments_list[t], vendor, 0))
+    return out

@@ -1,12 +1,14 @@
 """Raster <-> FLAC conversion of the port.
 
 The port of ``flac_raster_tpu.converter.RasterFLACConverter``:
-``encode_array`` (``converter.py:130``), ``encode_array_device`` (``:247``),
-``decode_bytes`` (``:813``) and ``decode_bytes_device`` (``:717``,
-``_denormalize_device_stream`` ``:770``), with the JSON sidecar fallback of
-``_load_meta`` (``:512``).  Rasters encode on the device at levels 0-8 and
-any size, one FLAC channel per band (up to 8), a pixel count that is not a
-multiple of the blocksize with a host-encoded tail frame:
+``tiff_to_flac`` (``converter.py:91``), ``encode_array`` (``:130``),
+``encode_array_device`` (``:247``), ``encode_array_batch`` (``:420``),
+``flac_to_tiff`` (``:492``), ``decode_rows`` and ``decode_rows_ranged``
+(``:556-715``), ``decode_bytes`` (``:813``) and ``decode_bytes_device``
+(``:717``, ``_denormalize_device_stream`` ``:770``), with the JSON sidecar
+fallback of ``_load_meta`` (``:512``).  Rasters encode on the device at
+levels 0-8 and any size, one FLAC channel per band (up to 8), a pixel count
+that is not a multiple of the blocksize with a host-encoded tail frame:
 
   * integer rasters take the shift mode with the zero point subtracted on
     the device: uint8, int8, uint16 and int16 as 16-bit PCM (2-band
@@ -36,16 +38,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .codec.decoder import decode_flac, md5_of_samples
+from .codec.decoder import (
+    DecodedStream,
+    _comments_of,
+    covering_frames,
+    decode_flac,
+    decode_flac_range,
+    decode_frame_span,
+    md5_of_samples,
+)
 from .codec.device_decoder import decode_flac_device
 from .codec.device_encoder import (
     _SIGNED_VIEWS,
     as_int64,
+    encode_flac_batch_device,
     encode_flac_device,
     np_dtype,
     resolve_device,
     to_host,
 )
+from .io.geo import Affine
+from .io.geotiff import open_geotiff, write_geotiff
+from .models.flac_format import parse_flac_metadata, parse_layout_block
 from .models.metadata import build_geospatial_comments, parse_geospatial_comments
 from .ops.device_normalize import denormalize_device
 from .ops.normalization import (
@@ -94,9 +108,10 @@ def _band_major(flat, width: int, height: int):
     """(h*w, channels) -> (channels, h, w), numpy array or tensor."""
     if flat.shape[0] != width * height:
         raise ValueError(f"decoded sample count {flat.shape[0]} != width*height {width * height}")
+    bands = flat.shape[1] if flat.ndim > 1 else 1
     if isinstance(flat, torch.Tensor):
-        return flat.reshape(height, width, -1).permute(2, 0, 1).contiguous()
-    return np.ascontiguousarray(flat.reshape(height, width, -1).transpose(2, 0, 1))
+        return flat.reshape(height, width, bands).permute(2, 0, 1).contiguous()
+    return np.ascontiguousarray(flat.reshape(height, width, bands).transpose(2, 0, 1))
 
 
 class RasterFLACConverter:
@@ -114,6 +129,38 @@ class RasterFLACConverter:
         self.lossless = lossless
         self.compute_md5 = compute_md5
         self.device = resolve_device(device)
+
+    def tiff_to_flac(self, tiff_path, flac_path, compression_level: int = 5,
+                     spatial_tiling: bool = False, tile_size: int = 512):
+        """Convert a GeoTIFF to a FLAC file.  With ``spatial_tiling``, write
+        a spatial FLAC file of ``tile_size`` tiles instead and return its
+        SpatialIndex."""
+        tiff_path, flac_path = Path(tiff_path), Path(flac_path)
+        if spatial_tiling:
+            from .models.spatial import SpatialFLACEncoder
+
+            encoder = SpatialFLACEncoder(tile_size=tile_size, lossless=self.lossless,
+                                         device=self.device)
+            return encoder.encode_spatial_flac(tiff_path, flac_path, compression_level)
+        with open_geotiff(tiff_path) as src:
+            data, meta, bounds, transform = src.read(), src.meta, src.bounds, src.transform
+        blob = self.encode_array(data, crs=meta["crs"], transform=transform, bounds=bounds,
+                                 nodata=meta["nodata"], compression_level=compression_level)
+        flac_path.write_bytes(blob)
+        logger.info("converted %s (%d bytes) -> %s (%d bytes)", tiff_path,
+                    tiff_path.stat().st_size, flac_path, len(blob))
+        return None
+
+    def flac_to_tiff(self, flac_path, tiff_path) -> None:
+        """Convert a FLAC file (of either package or the reference system,
+        metadata in its comments or its ``.json`` sidecar) to a GeoTIFF."""
+        flac_path, tiff_path = Path(flac_path), Path(tiff_path)
+        data, meta = self.decode_bytes(flac_path.read_bytes(),
+                                       sidecar_path=flac_path.with_suffix(".json"))
+        t = meta.get("transform")
+        write_geotiff(tiff_path, data, crs=meta.get("crs") or None,
+                      transform=Affine(*t[:6]) if t else None, nodata=meta.get("nodata"))
+        logger.info("converted %s -> %s %s", flac_path, tiff_path, data.shape)
 
     def encode_array(
         self,
@@ -143,6 +190,18 @@ class RasterFLACConverter:
         if data.ndim == 2:
             data = data[None]
         count, height, width = data.shape
+        samples, sample_rate, bps, zero, params = self._samples(data)
+        comments = self._comments(samples.shape[1], params, count, height, width, data.dtype,
+                                  crs, transform, bounds, nodata, extra_comments)
+        return encode_flac_device(
+            samples, sample_rate, bps,
+            compression_level=compression_level, comments=comments,
+            compute_md5=compute_md5, zero_point=zero, device=self.device,
+        )
+
+    def _samples(self, data: np.ndarray):
+        """(sample rows, sample rate, bits per sample, zero point,
+        normalization parameters) of a (bands, h, w) raster."""
         dt = np.dtype(data.dtype)
         sample_rate, ref_bps = calculate_audio_params(data, dt)
         zero = 0
@@ -163,12 +222,45 @@ class RasterFLACConverter:
         else:
             samples, params = normalize_lossless(_interleave(data))
             bps = params.bits_per_sample
-        comments = self._comments(samples.shape[1], params, count, height, width, dt, crs,
-                                  transform, bounds, nodata, extra_comments)
-        return encode_flac_device(
-            samples, sample_rate, bps,
-            compression_level=compression_level, comments=comments,
-            compute_md5=compute_md5, zero_point=zero, device=self.device,
+        return samples, sample_rate, bps, zero, params
+
+    def encode_array_batch(
+        self,
+        tiles: np.ndarray,
+        *,
+        crs=None,
+        transforms=None,
+        bounds_list=None,
+        nodata=None,
+        compression_level: int = 5,
+        extra_comments_list=None,
+    ) -> list[bytes]:
+        """Encode T same-shaped (bands, h, w) tiles, a (T, bands, h, w)
+        array, with their frames planned and emitted together on the device
+        (``encode_flac_batch_device``).
+
+        Each tile keeps its own normalization and GEOSPATIAL_* comments
+        (``transforms``, ``bounds_list`` and ``extra_comments_list`` hold
+        one entry per tile), so tile t's bytes equal ``encode_array`` of the
+        tile with them.  Returns the T FLAC streams.
+        """
+        tiles = np.asarray(tiles)
+        T, count, height, width = tiles.shape
+        if T == 0:
+            return []
+        batch, comments_list = [], []
+        for t in range(T):
+            samples, sample_rate, bps, zero, params = self._samples(tiles[t])
+            comments_list.append(self._comments(
+                samples.shape[1], params, count, height, width, tiles.dtype, crs,
+                transforms[t] if transforms is not None else None,
+                bounds_list[t] if bounds_list is not None else None, nodata,
+                extra_comments_list[t] if extra_comments_list is not None else None))
+            batch.append(samples)
+        return encode_flac_batch_device(
+            np.stack(batch), sample_rate, bps, compression_level=compression_level,
+            comments_list=comments_list, compute_md5=self.compute_md5, zero_point=zero,
+            device=self.device,
         )
 
     @staticmethod
@@ -317,6 +409,13 @@ class RasterFLACConverter:
         """
         decoded = decode_flac_device(blob, device=self.device, scan=scan)
         meta, width, height = self._meta_and_dims(decoded.comments, sidecar_path, override_dims)
+        return self._denormalize_device_stream(decoded, meta, width, height), meta
+
+    @staticmethod
+    def _denormalize_device_stream(decoded, meta: dict, width: int, height: int):
+        """The (bands, height, width) raster of a device DecodedStream, on
+        its device (the shared tail of ``decode_bytes_device`` and the
+        spatial streamer's ``decode_bbox_device``)."""
         params = meta.get("normalization")
         bps = decoded.streaminfo.bits_per_sample
         # band-major layout first, on int32 (the narrow unsigned types
@@ -324,8 +423,8 @@ class RasterFLACConverter:
         data = _band_major(decoded.samples, width, height)
         if params is None:
             return denormalize_device(data, _reference_params(meta, bps), bits_per_sample=bps,
-                                      soundfile_compat=True), meta
-        return denormalize_device(data, params, bits_per_sample=bps), meta
+                                      soundfile_compat=True)
+        return denormalize_device(data, params, bits_per_sample=bps)
 
     def decode_bytes(
         self,
@@ -342,6 +441,13 @@ class RasterFLACConverter:
         """
         decoded = decode_flac(blob, verify_crc=verify_crc)
         meta, width, height = self._meta_and_dims(decoded.comments, sidecar_path, override_dims)
+        return _band_major(self._denormalize_samples(decoded, meta), width, height), meta
+
+    @staticmethod
+    def _denormalize_samples(decoded, meta: dict) -> np.ndarray:
+        """The raster values of a host DecodedStream's sample rows, (rows,
+        bands).  Every mode is elementwise per row, so any run of rows of
+        the stream inverts alone."""
         samples = decoded.samples
         bps = decoded.streaminfo.bits_per_sample
         if bps == 16:
@@ -349,13 +455,95 @@ class RasterFLACConverter:
             samples = samples.astype(np.int16)
         params = meta.get("normalization")
         if params is None:
-            flat = denormalize_from_audio(samples, _reference_params(meta, bps),
+            return denormalize_from_audio(samples, _reference_params(meta, bps),
                                           soundfile_compat=True)
-        elif params.mode == MODE_MINMAX:
-            flat = denormalize_from_audio(samples, params)
+        if params.mode == MODE_MINMAX:
+            return denormalize_from_audio(samples, params)
+        return denormalize_lossless(samples, params)
+
+    def _rows_meta(self, blocks, sidecar_path, row0: int, n_rows: int) -> dict:
+        """The metadata of a stream's header blocks, with the row window
+        checked against the raster."""
+        meta = self._load_meta(_comments_of(blocks)[1], sidecar_path)
+        if not meta:
+            raise ValueError("no geospatial metadata found in FLAC file or sidecar")
+        if row0 < 0 or n_rows < 0 or row0 + n_rows > meta["height"]:
+            raise ValueError("row range outside the raster")
+        return meta
+
+    def decode_rows(self, blob: bytes, row0: int, n_rows: int,
+                    sidecar_path=None) -> tuple[np.ndarray, dict]:
+        """Decode raster rows [row0, row0 + n_rows) of a FLAC blob on the
+        host: the rows are the sample span [row0 * width, (row0 + n_rows) *
+        width), and only the frames covering it are parsed
+        (``decode_flac_range``).  Returns ((bands, n_rows, width) array,
+        metadata).  ``decode_flac_device(sample_range=...)`` is its
+        counterpart on the card."""
+        meta = self._rows_meta(parse_flac_metadata(bytes(blob))[1], sidecar_path, row0, n_rows)
+        width = meta["width"]
+        decoded = decode_flac_range(blob, row0 * width, n_rows * width, verify_crc=False)
+        return _band_major(self._denormalize_samples(decoded, meta), width, n_rows), meta
+
+    # the first fetch of decode_rows_ranged's header prefix; it grows four
+    # times over until the metadata parses, up to the maximum
+    _HEADER_PREFETCH = 256 * 1024
+    _HEADER_PREFETCH_MAX = 32 * 1024 * 1024
+
+    def decode_rows_ranged(self, source, row0: int, n_rows: int,
+                           sidecar_path=None) -> tuple[np.ndarray, dict, int]:
+        """``decode_rows`` over a byte-range source: any object with
+        ``read_range(start, end)`` (inclusive end) and ``file_size``, as
+        ``io.remote.RemoteFile``.
+
+        Fetches a header prefix, growing until the metadata parses, then
+        only the frame span covering the rows, located through the FRTP
+        layout index.  A stream without a usable index is fetched whole and
+        goes through ``decode_rows``.  Returns (data, meta, bytes fetched).
+        """
+        size = source.file_size
+        want = min(self._HEADER_PREFETCH, size or self._HEADER_PREFETCH)
+        header = b""
+        while True:
+            header += source.read_range(len(header), want - 1)
+            fetched = len(header)
+            try:
+                si, blocks, frame_start = parse_flac_metadata(header)
+                break
+            except ValueError as e:
+                if "truncated" not in str(e):
+                    raise
+                if (size is not None and want >= size) or want >= self._HEADER_PREFETCH_MAX:
+                    raise
+                want = min(want * 4, size or self._HEADER_PREFETCH_MAX)
+        meta = self._rows_meta(blocks, sidecar_path, row0, n_rows)
+        width = meta["width"]
+
+        layout = parse_layout_block(blocks)
+        N = si.max_blocksize
+        offsets = layout.absolute_offsets(frame_start) if layout is not None else None
+        if (layout is None or si.min_blocksize != N or N == 0 or si.total_samples == 0
+                or (size is not None and offsets[-1] != size)):
+            # no usable decode index: the whole file
+            blob = header
+            if size is not None and size > len(header):
+                blob = header + source.read_range(len(header), size - 1)
+            data, meta = self.decode_rows(blob, row0, n_rows, sidecar_path)
+            return data, meta, len(blob)
+
+        start_sample, num_samples = row0 * width, n_rows * width
+        f0, f1 = covering_frames(start_sample, num_samples, N, len(layout.sizes))
+        lo_byte, hi_byte = int(offsets[f0]), int(offsets[f1])
+        if hi_byte <= len(header):
+            span = header[lo_byte:hi_byte]
+        elif lo_byte < len(header):
+            span = header[lo_byte:] + source.read_range(len(header), hi_byte - 1)
+            fetched += hi_byte - len(header)
         else:
-            flat = denormalize_lossless(samples, params)
-        return _band_major(flat, width, height), meta
+            span = source.read_range(lo_byte, hi_byte - 1)
+            fetched += hi_byte - lo_byte
+        dec = DecodedStream(decode_frame_span(span, si, f0, f1, start_sample, num_samples,
+                                              verify_crc=False), si, {})
+        return _band_major(self._denormalize_samples(dec, meta), width, n_rows), meta, fetched
 
 
 def _md5_of_rows(rows: torch.Tensor, zero: int, bps: int) -> bytes:

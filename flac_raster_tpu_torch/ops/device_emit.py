@@ -117,7 +117,7 @@ def _utf8_tokens(fi: torch.Tensor):
 def emit_tokens(
     x: torch.Tensor,
     plan: dict,
-    frame0: int,
+    frame_numbers: torch.Tensor,
     *,
     blocksize: int,
     bps: int,
@@ -135,7 +135,9 @@ def emit_tokens(
     Args:
         x: (F, C, N) int32 PCM (after ``normalize``), one signal per slot.
         plan: ``plan_blocks`` output for ``x.reshape(F * C, N)``.
-        frame0: absolute index of the first frame.
+        frame_numbers: (F,) int64 number of each frame on x's device (its
+            header's UTF-8 field): ``arange(c0, c1)`` for a chunk of one
+            stream; each stream of a batch counts its frames from 0.
         chan_code: (F,) channel assignment per frame; None = independent
             channels (C - 1).
         ch_bps: (F, C) bit depth per slot; None = ``bps`` everywhere (a
@@ -173,8 +175,7 @@ def emit_tokens(
     xu = x.long() & 0xFFFFFFFF
 
     # ---- layout ----------------------------------------------------------
-    fi = frame0 + torch.arange(F, device=dev)
-    utf8_v, utf8_l, n_bytes = _utf8_tokens(fi)
+    utf8_v, utf8_l, n_bytes = _utf8_tokens(frame_numbers.long())
     hdr_bits = 32 + n_bytes * 8 + bs_tail_bits
     raw = hdr_bits + 8 + sf_bits.sum(dim=1)
     frame_bits = raw + torch.remainder(-raw, 8) + 16
@@ -312,7 +313,8 @@ def emit_tokens(
     }
 
 
-def emit_plan(x: torch.Tensor, plan: dict, frame0: int, *, n_words: int | None = None,
+def emit_plan(x: torch.Tensor, plan: dict, frame_numbers: torch.Tensor, *,
+              n_words: int | None = None,
               chan_code: torch.Tensor | None = None, ch_bps: torch.Tensor | None = None,
               **layout_kw) -> dict:
     """Emit one planned chunk: both token streams packed into one buffer.
@@ -329,7 +331,7 @@ def emit_plan(x: torch.Tensor, plan: dict, frame0: int, *, n_words: int | None =
     F, C, N = x.shape
     if n_words is None:
         n_words = worst_case_words(F, C, N, layout_kw["bps"] + (ch_bps is not None))
-    tok = emit_tokens(x, plan, frame0, chan_code=chan_code, ch_bps=ch_bps, **layout_kw)
+    tok = emit_tokens(x, plan, frame_numbers, chan_code=chan_code, ch_bps=ch_bps, **layout_kw)
     words = pack_tokens(*tok["header"], n_words)
     err = torch.zeros(1, dtype=torch.int32, device=x.device)
     pack_tokens(*tok["samples"], n_words, out=words, version=SAMPLE_PACK_VERSION,
@@ -372,7 +374,7 @@ def _plan_mid_side(x: torch.Tensor, bps: int, **plan_kw):
 
 def plan_and_emit(
     x: torch.Tensor,
-    frame0: int,
+    frame_numbers: torch.Tensor,
     *,
     blocksize: int,
     bps: int,
@@ -394,7 +396,7 @@ def plan_and_emit(
     Args:
         x: (F, C, N) samples of any integer dtype; ``zero_point`` is
             subtracted in the fused prologue (lossless shift mode).
-        frame0: absolute index of the first frame.
+        frame_numbers: (F,) int64 frame numbers (``emit_tokens``).
         mid_side: full stereo search (C == 2, bps + 1 <= MAX_DEVICE_BPS):
             L, R, mid and side are planned in one batch and each frame
             keeps its cheapest assignment, as the JAX ``plan_and_emit``.
@@ -417,7 +419,7 @@ def plan_and_emit(
         planner = plan_blocks_wide if bps > MAX_DEVICE_BPS else plan_blocks
         plan = planner(x.reshape(F * C, N), bps=bps, **plan_kw)
     return emit_plan(
-        x, plan, frame0, n_words=n_words, chan_code=chan_code, ch_bps=ch_bps,
+        x, plan, frame_numbers, n_words=n_words, chan_code=chan_code, ch_bps=ch_bps,
         blocksize=blocksize, bps=bps, sr_code=sr_code, bps_code=bps_code,
         bs_code=bs_code, bs_tail_bits=bs_tail_bits, bs_tail_val=bs_tail_val,
         max_partition_order=max_partition_order,

@@ -59,7 +59,7 @@ def test_injected_plan_emits_identical_words(F, C, N, level, zero_point, frame0)
         jnp.asarray(xn.reshape(F * C, N)), blocksize=N, bps=16, **cfg).items()}
     x_port = tde.normalize(torch.from_numpy(xin), zero_point)
     assert np.array_equal(x_port.numpy(), xn)
-    out = tde.emit_plan(x_port, interop.plan_from_reference(jplan), frame0,
+    out = tde.emit_plan(x_port, interop.plan_from_reference(jplan), torch.arange(frame0, frame0 + F),
                         n_words=n_words, max_partition_order=cfg["max_partition_order"],
                         **layout)
     assert np.array_equal(out["words"].numpy().view(np.uint32), np.asarray(ref["words"]))
@@ -77,7 +77,7 @@ def test_plan_and_emit_at_level0_matches_jax_end_to_end():
               zero_point=32768, **CONFIGS[0])
     n_words = tde.worst_case_words(F, C, N, 16)
     ref = jax_plan_and_emit(jnp.asarray(x), jnp.int32(2), n_words=n_words, **kw)
-    out = tde.plan_and_emit(torch.from_numpy(x), 2, n_words=n_words, **kw)
+    out = tde.plan_and_emit(torch.from_numpy(x), torch.arange(2, 2 + F), n_words=n_words, **kw)
     assert np.array_equal(out["words"].numpy().view(np.uint32), np.asarray(ref["words"]))
 
 
@@ -102,4 +102,4 @@ def test_mid_side_past_the_device_width_raises(kw):
     args = dict(blocksize=4096, bps=16, sr_code=9, bps_code=4, bs_code=12)
     args.update(kw)
     with pytest.raises(ValueError, match="mid-side"):
-        tde.plan_and_emit(x, 0, **args)
+        tde.plan_and_emit(x, torch.arange(x.shape[0]), **args)

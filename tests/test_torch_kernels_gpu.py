@@ -209,8 +209,9 @@ def _midside_level8(cuda, frames=8, n=4096):
     plan, xs, code, ch_bps = device_emit._plan_mid_side(
         x.to(cuda), 16, blocksize=n, max_lpc_order=cfg.max_lpc_order, use_lpc=True,
         max_partition_order=6, apodizations=cfg.apodizations)
-    tok = device_emit.emit_tokens(xs, plan, 0, blocksize=n, bps=16, sr_code=9, bps_code=4,
-                                  bs_code=12, max_partition_order=6, chan_code=code,
+    tok = device_emit.emit_tokens(xs, plan, torch.arange(xs.shape[0], device=cuda), blocksize=n,
+                                  bps=16, sr_code=9, bps_code=4, bs_code=12,
+                                  max_partition_order=6, chan_code=code,
                                   ch_bps=ch_bps)
     return tok["samples"]
 
@@ -762,3 +763,50 @@ def test_minmax_inverse_on_card_matches_host(cuda, dtype, stream_bps):
         signed = {torch.uint16: torch.int16, torch.uint32: torch.int32}.get(dev.dtype, dev.dtype)
         got = dev.view(signed).cpu().numpy()
         assert np.ascontiguousarray(got.T).tobytes() == host.tobytes()
+
+
+@pytest.mark.parametrize("level", [1, 5])
+def test_tile_batch_on_card_matches_each_tile(cuda, level):
+    """encode_array_batch on the card: every tile (edge tiles with a tail
+    frame too) round-trips, and at level 1 (no float stage) equals
+    encode_array of the tile.  At level 5 the float32 LPC stage's
+    reductions on the card may round apart with the batch's size, so a
+    tile's plan may differ from its own encode's."""
+    from flac_raster_tpu_torch import RasterFLACConverter
+
+    rng = np.random.default_rng(level)
+    yy, xx = np.meshgrid(np.arange(300), np.arange(1200), indexing="ij")
+    band = np.clip(20000 + 9000 * np.sin(xx / 37.0) * np.cos(yy / 23.0)
+                   + rng.normal(0, 20, xx.shape), 0, 65535).astype(np.uint16)
+    conv = RasterFLACConverter(device="cuda")
+    for th, tw in ((256, 256), (44, 256)):
+        tiles = np.stack([band[None, :th, i * tw : (i + 1) * tw] for i in range(4)])
+        for tile, blob in zip(tiles, conv.encode_array_batch(tiles, compression_level=level)):
+            if level == 1:
+                assert blob == conv.encode_array(tile, compression_level=level)
+            assert np.array_equal(conv.decode_bytes(blob)[0], tile)
+
+
+def test_bbox_decode_onto_card(cuda, tmp_path):
+    """decode_bbox_device and iter_bbox_to_device on the card equal
+    decode_bbox; tile 0 alone takes the host route."""
+    from flac_raster_tpu_torch import Affine, SpatialFLACEncoder, SpatialFLACStreamer
+    from flac_raster_tpu_torch.io.geotiff import write_geotiff
+
+    rng = np.random.default_rng(9)
+    data = rng.integers(-1000, 3000, (1, 300, 400)).astype(np.int16)
+    write_geotiff(tmp_path / "r.tif", data, crs="EPSG:4326",
+                  transform=Affine.from_origin(-105.5, 40.5, 0.001, 0.001))
+    SpatialFLACEncoder(tile_size=128, device="cuda").encode_spatial_flac(
+        tmp_path / "r.tif", tmp_path / "s.flac", compression_level=5)
+    st = SpatialFLACStreamer(tmp_path / "s.flac", device="cuda")
+    bbox = (-105.5, 40.2, -105.1, 40.5)
+    host = st.decode_bbox(bbox)
+    got = st.decode_bbox_device(bbox)
+    assert [r.startswith("host: ") for r in st.last_routes] == [True] + [False] * 11
+    for (f, tile), (_, want) in zip(got, host):
+        assert tile.device.type == "cuda" and np.array_equal(tile.cpu().numpy(), want)
+    streamed = {f.frame_id: tile for f, tile in st.iter_bbox_to_device(bbox)}
+    for f, tile in got:
+        assert streamed[f.frame_id].device.type == "cuda"
+        assert torch.equal(streamed[f.frame_id], tile)

@@ -22,6 +22,9 @@ from flac_raster_tpu_torch.ops import rice_group, rice_scan, stereo, wide_codec
 from flac_raster_tpu_torch.ops import bitpack, crc, fixed, lpc
 from flac_raster_tpu_torch import converter
 from flac_raster_tpu_torch.codec import host_encoder
+from flac_raster_tpu_torch import compare
+from flac_raster_tpu_torch.io import geo, geotiff, remote
+from flac_raster_tpu_torch.models import spatial, streaming
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flac_raster_tpu"))
@@ -33,6 +36,19 @@ sys.exit(1 if bad else 0)
 def test_slice_imports_leave_jax_out_of_sys_modules():
     res = subprocess.run(
         [sys.executable, "-c", _SLICE_IMPORTS], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_slice_imports_without_requests_obstore_or_aiohttp():
+    """The card's machine has none of the remote layer's optional packages:
+    every module of the port, and chip_smoke.py, imports without them."""
+    blocked = ("import sys\n"
+               "for m in ('requests', 'obstore', 'aiohttp'):\n"
+               "    sys.modules[m] = None\n")
+    res = subprocess.run(
+        [sys.executable, "-c", blocked + _SLICE_IMPORTS], cwd=ROOT,
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stdout + res.stderr

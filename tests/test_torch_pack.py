@@ -141,7 +141,7 @@ def _merged_streams():
     x[2, 1] = rng.integers(-32768, 32768, N)
     xt = torch.from_numpy(x)
     plan = dc.plan_blocks(xt.reshape(F * C, N), blocksize=N, bps=16)
-    tok = de.emit_tokens(xt, plan, 70000, blocksize=N, bps=16, sr_code=9, bps_code=4,
+    tok = de.emit_tokens(xt, plan, torch.arange(70000, 70000 + F), blocksize=N, bps=16, sr_code=9, bps_code=4,
                          bs_code=12, max_partition_order=6)
     n_words = de.worst_case_words(F, C, N, 16)
     return [tuple(t.numpy() for t in tok[s]) for s in ("header", "samples")], n_words

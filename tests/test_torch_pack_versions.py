@@ -69,8 +69,9 @@ def _emitted_stream(C=2, F=2, level=8, mid_side=True, seed=5):
         plan, xt, code, ch_bps = tde._plan_mid_side(xt, 16, **kw)
     else:
         plan, code, ch_bps = tde.plan_blocks(xt.reshape(F * C, N), bps=16, **kw), None, None
-    tok = tde.emit_tokens(xt, plan, 65000, blocksize=N, bps=16, sr_code=9, bps_code=4,
-                          bs_code=12, max_partition_order=kw["max_partition_order"],
+    tok = tde.emit_tokens(xt, plan, torch.arange(65000, 65000 + F), blocksize=N, bps=16,
+                          sr_code=9, bps_code=4, bs_code=12,
+                          max_partition_order=kw["max_partition_order"],
                           chan_code=code, ch_bps=ch_bps)
     v, l, o = (t.numpy() for t in tok["samples"])
     return v.view(np.uint32), l, o

@@ -74,7 +74,7 @@ def test_integer_levels_words_identical(level):
     kw = _layout(N, level)
     n_words = tde.worst_case_words(F, 2, N, 17)
     ref = jax_plan_and_emit(jnp.asarray(x), jnp.int32(70000), n_words=n_words, **kw)
-    out = tde.plan_and_emit(torch.from_numpy(np.ascontiguousarray(x)), 70000,
+    out = tde.plan_and_emit(torch.from_numpy(np.ascontiguousarray(x)), torch.arange(70000, 70000 + F),
                             n_words=n_words, **kw)
     assert int(out["err"]) == 0
     assert np.array_equal(out["words"].numpy().view(np.uint32), np.asarray(ref["words"]))
@@ -133,7 +133,8 @@ def test_level8_injected_emit_identical(monkeypatch):
     kw = _layout(N, 8)
     n_words = tde.worst_case_words(F, 2, N, 17)
     ref = jax_plan_and_emit(jnp.asarray(x), jnp.int32(3), n_words=n_words, **kw)
-    out = tde.plan_and_emit(torch.from_numpy(np.ascontiguousarray(x)), 3, n_words=n_words, **kw)
+    out = tde.plan_and_emit(torch.from_numpy(np.ascontiguousarray(x)), torch.arange(3, 3 + F),
+                            n_words=n_words, **kw)
     assert tdc._lpc_analyze is not orig
     assert np.array_equal(out["words"].numpy().view(np.uint32), np.asarray(ref["words"]))
     assert np.array_equal(out["frame_bits"].numpy(), np.asarray(ref["frame_bits"]))
