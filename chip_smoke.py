@@ -72,7 +72,9 @@ is not 0:
  16. the spatial file of that GeoTIFF at level 5, tiles of 512 (484 tiles in
      four shape groups, each group one batched encode): timed encode with
      launch counts, offsets and sizes exact, tile frame bytes held to the
-     JAX package's; ``decode_bbox_device`` of a 4x4-tile bbox and of the
+     JAX package's; a level-5 batch of the first tile row equal to
+     ``encode_array`` of each tile; ``decode_bbox_device`` of a 4x4-tile
+     bbox and of the
      whole raster, timed with launch counts, every tile equal to
      ``decode_bbox``'s and the source on the card, tile 0 alone on the host
      route (its rebuilt header has no layout index); ``iter_bbox_to_device``
@@ -83,7 +85,20 @@ is not 0:
  18. rows 4000-4511 of the phase-3 file on disk: ``decode_rows`` and
      ``decode_rows_ranged`` through a counting byte source (under 10% of the
      file fetched), and ``decode_flac_device(sample_range=...)`` on the
-     device route equal to ``decode_flac_range``, all timed.
+     device route equal to ``decode_flac_range``, all timed;
+ 19. the tile engines (``flac_raster_tpu_torch.parallel``):
+     ``decode_flac_batch_mesh`` of all 484 tiles of the phase-16 file on a
+     grid of the card, every tile equal to ``decode_flac_device``'s and the
+     source, tile 0 alone on the host route, timed beside the per-tile loop;
+     ``decode_bbox_device`` (now one batch) against the former per-tile
+     bbox decode, in turns, and profiled on the whole raster;
+     ``encode_flac_batch_mesh`` of the 441 interior tiles on 1 x 1 and 1 x 2
+     grids of the card, equal to each other and to ``encode_array_batch``'s
+     frames; two gloo processes on the card (``tests/test_torch_multihost.py``
+     as the worker) through ``encode_tiles_multihost``,
+     ``assemble_sharded_container`` and ``decode_container_tiles_multihost``:
+     the container equal to one process's; a worker that fails or outlives
+     240 s fails the run.
 
 Phase 6 holds the window gather on every ``word0 & 3``, on windows before
 the body and past it, and on body views 4, 8 and 12 bytes past a 16-byte
@@ -1200,6 +1215,7 @@ def reference_phase(dev, card: str) -> None:
 # the phase-15 band's georeference: a UTM 33N tile of 10 m pixels
 BAND_CRS = "EPSG:32633"
 BAND_ORIGIN = (600000.0, 5000040.0, 10.0, 10.0)
+WHOLE_RASTER = (-1e9, -1e9, 1e9, 1e9)     # a bbox around every tile
 
 
 def tile_box(r0: int, c0: int, rows: int, cols: int) -> tuple:
@@ -1310,38 +1326,25 @@ def spatial_phase(band: np.ndarray, work, card: str, dev) -> None:
     if frame_bytes > limit:
         raise AssertionError(f"spatial tiles: port frames {frame_bytes} B exceed {limit:.0f} B")
 
-    # the batch plans the first row's tiles together: does any tile's plan
-    # (the float32 LPC stage's reductions) change with the batch?
+    # the batch plans the first row's tiles together: no tile's plan (the
+    # float32 LPC stage's reductions) may change with the batch
     conv = RasterFLACConverter(device="cuda")
     n = band.shape[-1] // SPATIAL_TILE
     tiles = np.stack([band[None, :SPATIAL_TILE, i * SPATIAL_TILE : (i + 1) * SPATIAL_TILE]
                       for i in range(n)])
     batch = conv.encode_array_batch(tiles, compression_level=LEVEL)
     same = sum(b == conv.encode_array(t, compression_level=LEVEL) for b, t in zip(batch, tiles))
-    for b, t in zip(batch, tiles):
-        if conv.decode_bytes(b)[0].tobytes() != t.tobytes():
-            raise AssertionError("a tile of the level-5 batch does not round-trip")
-    # the float32 autocorrelation of 16 blocks alone and as the first 16 of
-    # 16 x 2^k: PyTorch's CUDA sum over a row picks its thread layout from
-    # the number of rows, so the sums may round apart
-    from flac_raster_tpu_torch.ops.device_codec import _autocorrelation
-
-    rows = min(1024, band.size // 4096)
-    x = torch.from_numpy(band.reshape(-1)[: rows * 4096].astype(np.int32)).to(dev)
-    x = x.reshape(rows, 4096) - 32768
-    r16 = _autocorrelation(x[:16], 8, "tukey(0.5)")
-    agree = {n: torch.equal(_autocorrelation(x[:n], 8, "tukey(0.5)")[:16], r16)
-             for n in (16, 64, 256, 1024) if n <= rows}
-    log(f"level-5 batch of {n} tiles: {same} of {n} equal to encode_array of the tile; all "
-        f"round-trip bit for bit; float32 autocorrelation of 16 blocks equal to theirs "
-        f"among N rows: {agree}")
+    if same != n:
+        raise AssertionError(f"level-5 batch of {n} tiles: {n - same} differ from encode_array "
+                             "of the tile")
+    log(f"level-5 batch of {n} tiles: each equal to encode_array of the tile")
 
     st = SpatialFLACStreamer(sflac, device="cuda")
     n_tiles = len(index.frames)
     box = tile_box(2, 3, 4, 4)
     st.decode_bbox_device(box)       # warm-up
     for label, bbox, want_n in (("4x4-tile bbox", box, 16),
-                                ("whole raster", (-1e9, -1e9, 1e9, 1e9), n_tiles)):
+                                ("whole raster", WHOLE_RASTER, n_tiles)):
         t0 = time.perf_counter()
         host = st.decode_bbox(bbox)
         t_host = time.perf_counter() - t0
@@ -1511,6 +1514,134 @@ def rows_phase(scene: np.ndarray, path, card: str, dev) -> None:
         f"{card}")
 
 
+# phase 19's two processes: tiles, samples a tile, blocksize, level
+MULTIHOST_WORKLOAD = ("16", str(SPATIAL_TILE * SPATIAL_TILE), "4096", str(LEVEL))
+
+
+def per_tile_bbox(st, bbox, dev):
+    """The former bbox decode, for comparison: one ``decode_flac_device``
+    call a tile, then the tile's inverse on the card."""
+    from flac_raster_tpu_torch import RasterFLACConverter, decode_flac_device
+
+    conv = RasterFLACConverter(device=dev)
+    out = []
+    for f, blob in zip(*st._tiles(bbox)):
+        dec = decode_flac_device(blob, verify_crc=False, device=dev)
+        meta = conv._load_meta(dec.comments, None)
+        out.append((f, conv._denormalize_device_stream(dec, meta, f.window.width,
+                                                       f.window.height)))
+    return out
+
+
+def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
+    """Phase 19: the tile engines.  ``decode_flac_batch_mesh`` of every tile
+    of the phase-16 file on a grid of the card (each tile's samples equal to
+    ``decode_flac_device``'s and, inverted, to the source; tile 0 alone on
+    the host route), timed beside the per-tile loop; ``decode_bbox_device``
+    (the batch) against the former per-tile bbox decode, in turns, and profiled;
+    ``encode_flac_batch_mesh`` of the interior tiles on 1 x 1 and 1 x 2
+    grids of the card, equal to each other and to ``encode_array_batch``'s
+    frames; two gloo processes on the card through
+    ``encode_tiles_multihost``, ``assemble_sharded_container`` and
+    ``decode_container_tiles_multihost``, the container equal to one
+    process's."""
+    import torch
+
+    from flac_raster_tpu_torch import RasterFLACConverter, SpatialFLACStreamer, decode_flac_device
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
+    from flac_raster_tpu_torch.parallel import (
+        decode_flac_batch_mesh, encode_flac_batch_mesh, tile_mesh,
+    )
+
+    st = SpatialFLACStreamer(work / "band.spatial.flac", device=dev)
+    frames, blobs = st._tiles(WHOLE_RASTER)
+    one = tile_mesh(devices=[dev])
+    decode_flac_batch_mesh(blobs[:8], mesh=one)      # warm-up
+    got, dt, launches = run_path("the batch decode of every tile", lambda: decode_flac_batch_mesh(
+        blobs, mesh=one), DECODE_KERNELS["full"])
+    t0 = time.perf_counter()
+    ref = [decode_flac_device(b, device=dev) for b in blobs]
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    host = [i for i, d in enumerate(got) if d.route != "device"]
+    if host != [0] or [d.route for d in ref] != [d.route for d in got]:
+        raise AssertionError(f"batch decode: tiles {host} off the device route")
+    conv = RasterFLACConverter(device=dev)
+    for f, d, r in zip(frames, got, ref):
+        w = f.window
+        tile = conv._denormalize_device_stream(d, conv._load_meta(d.comments, None), w.width,
+                                               w.height)
+        src = band[None, w.row_off : w.row_off + w.height, w.col_off : w.col_off + w.width]
+        if not (torch.equal(d.samples, r.samples) and same_on_card(tile, src, dev)):
+            raise AssertionError(f"batch decode: tile {f.frame_id} differs")
+    log(f"decode_flac_batch_mesh of all {len(blobs)} tiles (verify_crc): {dt:.3f} s, "
+        f"{dt / len(blobs) * 1e3:.3f} ms a tile, launches {launches}; the per-tile loop of "
+        f"decode_flac_device {t_loop:.3f} s, {t_loop / len(blobs) * 1e3:.3f} ms a tile "
+        f"({t_loop / dt:.2f}x); every tile equal to decode_flac_device's and to the source, "
+        f"tile 0 alone on the host route | {card}")
+    del got, ref
+
+    launches = {}
+    for label, bbox in (("4x4-tile bbox", tile_box(2, 3, 4, 4)), ("whole raster", WHOLE_RASTER)):
+        times = {"per-tile": [], "batch": []}
+        for route in ("per-tile", "batch", "batch", "per-tile"):
+            fn = (lambda: per_tile_bbox(st, bbox, dev)) if route == "per-tile" else (
+                lambda: st.decode_bbox_device(bbox))
+            out, t, launches[route] = run_path(f"the {route} bbox decode", fn,
+                                               DECODE_KERNELS["full"])
+            times[route].append(t / len(out))
+            del out
+        log(f"decode_bbox_device, {label}, ms a tile in turns: per-tile (former route) "
+            f"{[round(t * 1e3, 3) for t in times['per-tile']]}, launches "
+            f"{launches['per-tile']}; batch {[round(t * 1e3, 3) for t in times['batch']]}, "
+            f"launches {launches['batch']} | {card}")
+    profile_bbox(st, WHOLE_RASTER)
+
+    ts = SPATIAL_TILE
+    rows, cols = band.shape[0] // ts, band.shape[1] // ts
+    interior = np.stack([band[r * ts : (r + 1) * ts, c * ts : (c + 1) * ts]
+                         for r in range(rows) for c in range(cols)])
+    _, sample_rate, bps, zero, _ = conv._samples(interior[0][None])
+    pcm = interior.reshape(len(interior), -1, 1)
+    streams = {}
+    for name, grid in (("1x1", one), ("1x2", tile_mesh(devices=[dev, dev], blocks_axis=2))):
+        streams[name], dt, launches = run_path(
+            f"the {name} grid encode", lambda: encode_flac_batch_mesh(
+                pcm, sample_rate, bps, LEVEL, compute_md5=False, mesh=grid, zero_point=zero),
+            encode_kernels())
+        log(f"encode_flac_batch_mesh, {len(pcm)} interior tiles, {name} grid of the card: "
+            f"{dt:.3f} s, {interior.nbytes / dt / 1e6:.2f} MB/s raw, launches {launches}")
+    batch = conv.encode_array_batch(interior[:, None], compression_level=LEVEL)
+
+    def frames_of(blob):
+        return blob[parse_flac_metadata(blob)[2] :]
+
+    if streams["1x1"] != streams["1x2"] or [frames_of(b) for b in batch] != [
+            frames_of(b) for b in streams["1x1"]]:
+        raise AssertionError("the 1x1 grid, the 1x2 grid and encode_array_batch differ")
+    log(f"the 1x1 and 1x2 grids give the same {len(pcm)} streams, their frames equal to "
+        f"encode_array_batch's | {card}")
+    del streams, batch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_multihost import run_workers, single_process_container
+
+    t0 = time.perf_counter()
+    outs = run_workers(work / "mh", str(dev), MULTIHOST_WORKLOAD)
+    t_mh = time.perf_counter() - t0
+    T, n, blocksize, level = map(int, MULTIHOST_WORKLOAD)
+    single = single_process_container(work / "single", str(dev), T, n, blocksize, level)
+    if not (outs[0]["sizes"] == outs[1]["sizes"] and outs[0]["offsets"] == outs[1]["offsets"]
+            and (work / "mh.assembled.flac").read_bytes() == single
+            and all(o["decode_ok"] and o["devices"] == [str(dev)] for o in outs)
+            and all(r == "device" for o in outs for r in o["routes"])):
+        raise AssertionError(f"the two-process container differs: {outs}")
+    log(f"two gloo processes on the card, {T} tiles of {n} samples at level {level}: slices "
+        f"{[o['slice'] for o in outs]}, sizes and offsets agree, the assembled container "
+        f"({len(single)} bytes) equal to one process's, each slice decoded on the device route "
+        f"and equal to its tiles; {t_mh:.1f} s with the processes' start-up | {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1668,11 +1799,13 @@ def run(work: Path, t_start: float) -> int:
     torch.cuda.empty_cache()
     log(f"phase 17: the streaming container, level {LEVEL}, tiles of {SPATIAL_TILE}")
     streaming_phase(band, work, card, dev)
-    del band
     torch.cuda.empty_cache()
     log(f"phase 18: rows {ROWS[0]}-{sum(ROWS) - 1} of the phase-3 file")
     rows_phase(scene, scene_file, card, dev)
     del scene
+    log("phase 19: the tile engines: batch decode, grid encode, two processes")
+    tile_engines_phase(band, work, card, dev)
+    del band
 
     for k in kernels:
         k["launches"] = TOTAL_LAUNCHES.get(k["name"], 0)

@@ -7,7 +7,8 @@ batched encode of same-shaped tiles, the device decode (window gather,
 Rice chain scan, predictor restore, shift denormalization), the host
 decode with random access by sample range or raster rows (also through
 byte ranges), GeoTIFF reading and writing, and the spatial and streaming
-tile containers with bbox reads, with nine hand-written Hopper kernels
+tile containers with bbox reads, the tile engines over a grid of devices
+and processes (``parallel``), with nine hand-written Hopper kernels
 (``csrc/``).  It imports torch and numpy, never JAX, and nothing from
 ``flac_raster_tpu``.
 """
@@ -22,6 +23,7 @@ from .io.geotiff import open_geotiff, write_geotiff
 from .io.remote import download_remote, is_remote_url, open_remote
 from .models.spatial import SpatialFLACEncoder, SpatialFLACStreamer, SpatialFrame, SpatialIndex
 from .models.streaming import create_streaming_flac, load_streaming_index
+from .parallel import decode_flac_batch_mesh, encode_flac_batch_mesh, tile_mesh
 from .version import __version__
 
 __all__ = [
@@ -30,5 +32,5 @@ __all__ = [
     "Affine", "BoundingBox", "Window", "open_geotiff", "write_geotiff", "download_remote",
     "is_remote_url", "open_remote", "SpatialFLACEncoder", "SpatialFLACStreamer",
     "SpatialFrame", "SpatialIndex", "create_streaming_flac", "load_streaming_index",
-    "__version__",
+    "decode_flac_batch_mesh", "encode_flac_batch_mesh", "tile_mesh", "__version__",
 ]

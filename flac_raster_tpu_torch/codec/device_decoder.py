@@ -48,12 +48,13 @@ from .decoder import (
     decode_frame_span,
     md5_of_samples,
 )
-from .device_encoder import resolve_device
+from .device_encoder import device_scope, resolve_device
 from .encoder import _blocksize_header
 
 logger = logging.getLogger("flac_raster_tpu_torch.device_decoder")
 
-__all__ = ["decode_flac_device", "prepare_frames", "DEFAULT_CHUNK_FRAMES", "HOST_ROUTES"]
+__all__ = ["decode_flac_device", "prepare_frames", "stream_plan", "FrameBatch",
+           "DEFAULT_CHUNK_FRAMES", "HOST_ROUTES"]
 
 DEFAULT_CHUNK_FRAMES = 4096
 HOST_ROUTES = 0  # decodes that took the host route since import
@@ -94,33 +95,253 @@ def _upload_words(span: np.ndarray, dev: torch.device) -> torch.Tensor:
     return host.to(dev, non_blocking=True) if dev.type == "cuda" else host
 
 
+def device_route(buf: bytes, si: StreamInfo, layout, frame_start: int):
+    """Whether the device pipeline can take a stream: (None, its frames'
+    absolute byte offsets) when it can, else (the host route's reason,
+    None)."""
+    N, C, bps, total = si.max_blocksize, si.channels, si.bits_per_sample, si.total_samples
+    eligible = (
+        layout is not None
+        and layout.version >= 2
+        and (layout.flags & LAYOUT_FLAG_TOK32)
+        and (C == 1 or layout.sub_bits is not None)
+        and si.min_blocksize == si.max_blocksize
+        and N >= 64
+        and (N & (N - 1)) == 0
+        and 1 <= C <= 8
+        # a 2-channel side subframe carries one bit more
+        and (bps + (1 if C == 2 else 0) <= MAX_DEVICE_BPS + 1 or bps == 32)
+        and total > 0
+    )
+    if not eligible:
+        return "no v2 layout index / unsupported shape", None
+    full_frames = total // N
+    if len(layout.sizes) != full_frames + (1 if total > full_frames * N else 0):
+        return "layout/frame-count mismatch", None
+    offsets = layout.absolute_offsets(frame_start)
+    if offsets[-1] != len(buf):
+        return "layout/body-size mismatch", None
+    return None, offsets
+
+
+def first_crc_mismatch(arr: np.ndarray, offs: np.ndarray, sizes: np.ndarray):
+    """The index of the first frame (at byte ``offs`` of ``arr``, ``sizes``
+    bytes long) whose stored CRC-16 is not its bytes' (native C), or None."""
+    calc = native.crc16_spans(arr, offs, sizes - 2)
+    stored = (arr[offs + sizes - 2].astype(np.uint16) << 8) | arr[offs + sizes - 1]
+    bad = np.nonzero(calc != stored)[0]
+    return int(bad[0]) if bad.size else None
+
+
+def frame_tables(offs: np.ndarray, sizes: np.ndarray, frame_idx: np.ndarray, sub_bits,
+                 N: int, C: int):
+    """Per-frame device inputs of full frames whose first bytes lie at
+    ``offs`` of a big-endian word buffer: ``word0`` (first window word),
+    ``bit_base``, ``sf`` (C subframe starts) and ``fe`` (frame end), all
+    window-relative.  Each header's UTF-8 length comes from the frame's
+    number in its stream (``frame_idx``); ``sub_bits`` are the layout's
+    (F, C - 1) subframe sizes.  Returns None when the subframe offsets do
+    not fit the channels or their frames."""
+    n_utf8 = np.sum(frame_idx[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
+    hdr_bits = 32 + n_utf8 * 8 + _blocksize_header(N)[2] + 8
+    sf_rel = np.zeros((len(offs), C), np.int64)
+    sf_rel[:, 0] = hdr_bits
+    if C > 1:
+        if sub_bits.shape[1] != C - 1:
+            return None
+        sf_rel[:, 1:] = hdr_bits[:, None] + np.cumsum(sub_bits, axis=1)
+    if (sf_rel[:, -1] >= sizes * 8).any():
+        return None
+    bit_base = (offs & 3) * 8
+    return {"word0": offs >> 2, "bit_base": bit_base, "sf": sf_rel + bit_base[:, None],
+            "fe": bit_base + sizes * 8}
+
+
+def window_words(max_size: int) -> int:
+    """Window words for frames of at most ``max_size`` bytes: whole 16-byte
+    rows, for the gather's vector stores."""
+    W = (3 + max_size + 3) // 4 + _SLACK_WORDS
+    return -(-W // 4) * 4
+
+
+def stream_plan(buf: bytes, si: StreamInfo, layout, frame_start: int,
+                sample_range: "tuple[int, int] | None" = None):
+    """The host side of a device decode of one stream: its frames [f0, f1)
+    that cover ``sample_range`` (default: the whole stream), their offsets,
+    sizes and :func:`frame_tables` (relative to the word-aligned byte
+    ``lo``), the ``tail`` rows of a partial tail frame in range, and where
+    the range's ``count`` rows start (``first``) in the decoded frames.
+    Returns the host route's reason instead when the device cannot take
+    the stream."""
+    reason, offsets = device_route(buf, si, layout, frame_start)
+    if reason is not None:
+        return reason
+    N, C, total = si.max_blocksize, si.channels, si.total_samples
+    full, n_frames = total // N, len(layout.sizes)
+    if sample_range is None:
+        s0, cnt, f0, f1 = 0, total, 0, n_frames
+    else:
+        s0, cnt = sample_range
+        f0 = min(s0 // N, max(n_frames - 1, 0))
+        f1 = min(-(-(s0 + cnt) // N), n_frames) if cnt else f0
+    f1_full = min(f1, full)
+    sizes = np.asarray(layout.sizes, np.int64)
+    lo = int(offsets[f0]) & ~3
+    tables = frame_tables(offsets[f0:f1_full] - lo, sizes[f0:f1_full],
+                          np.arange(f0, f1_full, dtype=np.int64),
+                          None if layout.sub_bits is None else layout.sub_bits[f0:f1_full], N, C)
+    if tables is None:
+        return "layout/subframe mismatch"
+    return {"si": si, "offsets": offsets, "sizes": sizes, "lo": lo, "f0": f0, "f1": f1,
+            "F": max(f1_full - f0, 0), "full": full,
+            "tail": total - full * N if f1 > full else 0, "tables": tables,
+            "first": s0 - f0 * N, "count": cnt}
+
+
+class FrameBatch:
+    """The frames of streams of one (blocksize, channels, bps) class,
+    decoded together on a row of devices and enqueued at construction.
+
+    The streams' word-aligned bodies go up concatenated, once, from pinned
+    memory, after one native CRC-16 pass over all their frames in range.
+    The full frames spread over the row's devices (a device may repeat) in
+    chunks of ``chunk`` frames: window gather (K10), Rice scan (K8 or K9 by
+    ``scan``) and predictor restore, each chunk's samples copied into one
+    output buffer (on the row's first device) in which every stream owns
+    contiguous slots of N rows, one more for a tail.  :meth:`put_tails`
+    decodes the tails on the host; :meth:`flagged` pulls the err flags,
+    once a device.
+    """
+
+    def __init__(self, blobs, plans, row, N: int, C: int, bps: int, verify_crc: bool,
+                 scan: str, chunk: int = DEFAULT_CHUNK_FRAMES):
+        self.blobs, self.plans, self.N = blobs, plans, N
+        F = np.array([p["F"] for p in plans], np.int64)
+        n_slots = F + np.array([p["tail"] > 0 for p in plans], np.int64)
+        self.slot0 = np.cumsum(n_slots) - n_slots
+        self.frame_of = np.repeat(np.arange(len(plans)), F)
+        out_dev = row[0]
+        self.out = torch.empty((int(n_slots.sum()) * N, C), dtype=torch.int32, device=out_dev)
+        self.errs: dict = {}
+        # every stream's frames in range, each from its word-aligned first byte
+        spans = [(p["lo"], int(p["offsets"][p["f1"]])) for p in plans]
+        n_words = np.array([(hi - lo + 3) // 4 for lo, hi in spans], np.int64)
+        base = np.cumsum(n_words) - n_words
+        pin = out_dev.type == "cuda"
+        with record_function("frtt.decode.upload"):
+            host = torch.zeros(int(n_words.sum()), dtype=torch.int32, pin_memory=pin)
+            raw = host.numpy().view(np.uint8)
+            for (lo, hi), b, blob in zip(spans, base, blobs):
+                raw[4 * b : 4 * b + hi - lo] = np.frombuffer(blob, np.uint8, hi - lo, lo)
+        if verify_crc:
+            with record_function("frtt.decode.crc"):
+                n_crc = np.array([p["f1"] - p["f0"] for p in plans], np.int64)
+                offs = np.concatenate([p["offsets"][p["f0"] : p["f1"]] - p["lo"] + 4 * b
+                                       for p, b in zip(plans, base)])
+                bad = first_crc_mismatch(raw, offs, np.concatenate(
+                    [p["sizes"][p["f0"] : p["f1"]] for p in plans]))
+                if bad is not None:     # report the byte in its own stream
+                    k = int(np.repeat(np.arange(len(plans)), n_crc)[bad])
+                    at = int(offs[bad] - 4 * base[k] + plans[k]["lo"])
+                    raise ValueError(f"frame CRC-16 mismatch at byte {at}")
+        n_frames = int(F.sum())
+        if n_frames == 0:
+            return
+        raw.view(np.uint32).byteswap(inplace=True)      # big-endian words
+        # one int64 table a frame: word0, bit_base, fe, destination slot, sf
+        tab = np.empty((n_frames, 4 + C), np.int64)
+        cat = {k: np.concatenate([p["tables"][k] for p in plans])
+               for k in ("word0", "bit_base", "fe", "sf")}
+        tab[:, 0] = cat["word0"] + np.repeat(base, F)
+        tab[:, 1] = cat["bit_base"]
+        tab[:, 2] = cat["fe"]
+        tab[:, 3] = np.arange(n_frames) + np.repeat(self.slot0 - (np.cumsum(F) - F), F)
+        tab[:, 4:] = cat["sf"]
+        W = window_words(int(max(p["sizes"][p["f0"] : p["f0"] + p["F"]].max()
+                                 for p in plans if p["F"])))
+        tab_host = torch.from_numpy(tab)
+        slots = self.out.view(-1, N, C)
+        uploads: dict = {}
+        with record_function("frtt.decode.upload"):
+            for dev in row:
+                if dev not in uploads:
+                    if dev.type == "cuda":
+                        uploads[dev] = (host.to(dev, non_blocking=True),
+                                        tab_host.pin_memory().to(dev, non_blocking=True))
+                    else:
+                        uploads[dev] = (host, tab_host)
+        for s, dev in enumerate(row):
+            body, tab_dev = uploads[dev]
+            dst = tab_dev[:, 3].to(out_dev).contiguous()
+            with device_scope(dev):
+                for f0 in range(n_frames * s // len(row), n_frames * (s + 1) // len(row),
+                                chunk):
+                    f1 = min(f0 + chunk, n_frames * (s + 1) // len(row))
+                    with record_function("frtt.decode.gather"):
+                        windows = gather_windows(body, tab_dev[f0:f1, 0].contiguous(), W)
+                    with record_function("frtt.decode.frames"):
+                        samples, err = decode_frames_device(
+                            windows, tab_dev[f0:f1, 1], tab_dev[f0:f1, 4:], tab_dev[f0:f1, 2],
+                            C=C, bps=bps, N=N, scan=scan)
+                        slots.index_copy_(0, dst[f0:f1], samples.to(out_dev))
+                    self.errs.setdefault(dev, []).append((f0, f1, err))
+                    del windows, samples
+
+    def put_tails(self, verify_crc: bool) -> None:
+        """Decode the streams' tail frames on the host and copy them into
+        their slots (one upload)."""
+        with_tail = [k for k, p in enumerate(self.plans) if p["tail"]]
+        if not with_tail:
+            return
+        N, C = self.N, self.out.shape[1]
+        with record_function("frtt.decode.tail"):
+            pin = self.out.device.type == "cuda"
+            tails = torch.zeros((len(with_tail), N, C), dtype=torch.int32, pin_memory=pin)
+            rows = tails.numpy()
+            dst = np.empty(len(with_tail), np.int64)
+            for i, k in enumerate(with_tail):
+                p = self.plans[k]
+                full, si = p["full"], p["si"]
+                rows[i, : p["tail"]] = decode_frame_span(
+                    self.blobs[k][p["offsets"][full] :], si, full, full + 1,
+                    full * N, p["tail"], verify_crc)
+                dst[i] = self.slot0[k] + p["F"]
+            self.out.view(-1, N, C).index_copy_(
+                0, torch.from_numpy(dst).to(self.out.device),
+                tails.to(self.out.device, non_blocking=pin))
+
+    def flagged(self) -> set:
+        """The streams (batch indices) with a frame whose err flag is set:
+        one pull of the flags of every device."""
+        hit = set()
+        with record_function("frtt.decode.err_pull"):
+            for chunks in self.errs.values():
+                flags = torch.cat([err for _, _, err in chunks]).cpu().numpy()
+                frames = np.concatenate([np.arange(f0, f1) for f0, f1, _ in chunks])
+                hit.update(int(k) for k in np.unique(self.frame_of[frames[flags]]))
+        return hit
+
+    def samples(self, k: int) -> torch.Tensor:
+        """Stream k's (count, C) rows of the output buffer."""
+        start = int(self.slot0[k]) * self.N + self.plans[k]["first"]
+        return self.out[start : start + self.plans[k]["count"]]
+
+
 def prepare_frames(buf: bytes, frame_start: int, layout, si: StreamInfo, f0: int, f1: int,
                    dev: torch.device) -> dict:
     """The device inputs of full frames [f0, f1): body words uploaded once,
-    and per frame ``word0`` (first window word), ``bit_base``, ``sf`` (C
-    subframe starts) and ``fe`` (frame end), all window-relative, plus the
-    window width ``W``.  Returns None when the layout's subframe offsets do
-    not fit the stream's channels or their frames."""
-    N, C = si.max_blocksize, si.channels
+    and :func:`frame_tables` on the device, plus the window width ``W``.
+    Returns None when the layout's subframe offsets do not fit the
+    stream's channels or their frames."""
     arr = np.frombuffer(buf, np.uint8)
     offsets = layout.absolute_offsets(frame_start)
     sizes = np.asarray(layout.sizes[f0:f1], np.int64)
-    fi = np.arange(f0, f1, dtype=np.int64)
-    n_utf8 = np.sum(fi[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
-    hdr_bits = 32 + n_utf8 * 8 + _blocksize_header(N)[2] + 8
-    sf_rel = np.zeros((f1 - f0, C), np.int64)
-    sf_rel[:, 0] = hdr_bits
-    if C > 1:
-        if layout.sub_bits.shape[1] != C - 1:
-            return None
-        sf_rel[:, 1:] = hdr_bits[:, None] + np.cumsum(layout.sub_bits[f0:f1], axis=1)
-    if (sf_rel[:, -1] >= sizes * 8).any():
-        return None
     byte_lo = int(offsets[f0]) & ~3
-    offs = offsets[f0:f1] - byte_lo
-    bit_base = (offs & 3) * 8
-    W = (3 + int(sizes.max()) + 3) // 4 + _SLACK_WORDS
-    W = -(-W // 4) * 4  # whole 16-byte rows for the gather's vector stores
+    tables = frame_tables(offsets[f0:f1] - byte_lo, sizes, np.arange(f0, f1, dtype=np.int64),
+                          None if layout.sub_bits is None else layout.sub_bits[f0:f1],
+                          si.max_blocksize, si.channels)
+    if tables is None:
+        return None
 
     def up(a):
         # from pinned memory, so that the copy does not synchronise the host
@@ -129,10 +350,8 @@ def prepare_frames(buf: bytes, frame_start: int, layout, si: StreamInfo, f0: int
 
     with record_function("frtt.decode.upload"):
         body = _upload_words(arr[byte_lo : int(offsets[f1])], dev)
-        return {
-            "body": body, "word0": up(offs >> 2), "bit_base": up(bit_base),
-            "sf": up(sf_rel + bit_base[:, None]), "fe": up(bit_base + sizes * 8), "W": W,
-        }
+        return {"body": body, "W": window_words(int(sizes.max())),
+                **{k: up(v) for k, v in tables.items()}}
 
 
 def decode_flac_device(
@@ -177,90 +396,20 @@ def decode_flac_device(
         if s0 < 0 or cnt < 0 or s0 + cnt > total:
             raise ValueError("sample range outside the stream")
 
-    eligible = (
-        layout is not None
-        and layout.version >= 2
-        and (layout.flags & LAYOUT_FLAG_TOK32)
-        and (C == 1 or layout.sub_bits is not None)
-        and si.min_blocksize == si.max_blocksize
-        and N >= 64
-        and (N & (N - 1)) == 0
-        and 1 <= C <= 8
-        # a 2-channel side subframe carries one bit more
-        and (bps + (1 if C == 2 else 0) <= MAX_DEVICE_BPS + 1 or bps == 32)
-        and total > 0
-    )
-    if not eligible:
-        return _host_route(buf, verify_crc, "no v2 layout index / unsupported shape",
-                           sample_range, dev)
-    full_frames = total // N
-    tail_samples = total - full_frames * N
-    if len(layout.sizes) != full_frames + (1 if tail_samples else 0):
-        return _host_route(buf, verify_crc, "layout/frame-count mismatch", sample_range, dev)
-    if sample_range is not None:
-        rf0 = min(s0 // N, max(len(layout.sizes) - 1, 0))
-        rf1 = min(-(-(s0 + cnt) // N), len(layout.sizes)) if cnt else rf0
-    else:
-        s0, cnt = 0, total
-        rf0, rf1 = 0, len(layout.sizes)
-    rf1_full = min(rf1, full_frames)
-    range_tail = rf1 > full_frames and tail_samples
-
-    arr = np.frombuffer(buf, np.uint8)
-    sizes = np.asarray(layout.sizes, np.int64)
-    offsets = layout.absolute_offsets(frame_start)
-    if offsets[-1] != len(buf):
-        return _host_route(buf, verify_crc, "layout/body-size mismatch", sample_range, dev)
-    if verify_crc and rf1 > rf0:
-        with record_function("frtt.decode.crc"):
-            o_r, s_r = offsets[rf0:rf1], sizes[rf0:rf1]
-            calc = native.crc16_spans(arr, o_r, s_r - 2)
-            stored = (arr[o_r + s_r - 2].astype(np.uint16) << 8) | arr[o_r + s_r - 1]
-            bad = np.nonzero(calc != stored)[0]
-            if bad.size:
-                raise ValueError(f"frame CRC-16 mismatch at byte {int(o_r[bad[0]])}")
-    if cnt == 0:
+    plan = stream_plan(buf, si, layout, frame_start, sample_range)
+    if isinstance(plan, str):
+        return _host_route(buf, verify_crc, plan, sample_range, dev)
+    if plan["count"] == 0:
         return DecodedStream(torch.zeros((0, C), dtype=torch.int32, device=dev), si,
                              comments, vendor, route="device")
-
-    n_r = rf1_full - rf0
-    out = torch.empty((n_r * N + (tail_samples if range_tail else 0), C),
-                      dtype=torch.int32, device=dev)
-    if n_r > 0:
-        prep = prepare_frames(buf, frame_start, layout, si, rf0, rf1_full, dev)
-        if prep is None:
-            return _host_route(buf, verify_crc, "layout/subframe mismatch", sample_range, dev)
-        # enqueue every chunk before reading anything back: the err flags are
-        # pulled once, after the last chunk (a per-chunk read would
-        # synchronise the host with the card every chunk)
-        errs = []
-        for f0 in range(0, n_r, chunk):
-            f1 = min(f0 + chunk, n_r)
-            with record_function("frtt.decode.gather"):
-                windows = gather_windows(prep["body"], prep["word0"][f0:f1], prep["W"])
-            with record_function("frtt.decode.frames"):
-                samples, err = decode_frames_device(
-                    windows, prep["bit_base"][f0:f1], prep["sf"][f0:f1], prep["fe"][f0:f1],
-                    C=C, bps=bps, N=N, scan=scan,
-                )
-                out[f0 * N : f1 * N] = samples.reshape(-1, C)
-            errs.append(err)
-            del windows, samples
-        with record_function("frtt.decode.err_pull"):
-            flagged = bool(torch.cat(errs).any())
-        if flagged:
-            return _host_route(buf, verify_crc, "in-graph structure flag", sample_range, dev)
-
-    if range_tail:
-        # the tail frame is a partial block: decode it on the host, wrapped
-        # in a minimal stream
-        with record_function("frtt.decode.tail"):
-            tail = decode_frame_span(buf[offsets[full_frames] :], si, full_frames,
-                                     full_frames + 1, full_frames * N, tail_samples, verify_crc)
-            out[n_r * N :] = torch.from_numpy(tail).to(dev)
-
-    lo = s0 - rf0 * N
-    samples_dev = out[lo : lo + cnt]
+    # every chunk is enqueued before anything is read back: the err flags
+    # are pulled once, after the tail (a per-chunk read would synchronise
+    # the host with the card every chunk)
+    batch = FrameBatch([buf], [plan], [dev], N, C, bps, verify_crc, scan, chunk)
+    batch.put_tails(verify_crc)
+    if batch.flagged():
+        return _host_route(buf, verify_crc, "in-graph structure flag", sample_range, dev)
+    samples_dev = batch.samples(0)
     if verify_md5 and si.md5 != b"\x00" * 16:
         with record_function("frtt.decode.md5"):
             if md5_of_samples(samples_dev.cpu().numpy(), bps) != si.md5:

@@ -29,6 +29,8 @@ out, one chunk after another.  Overlapping those stages is later work.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -41,10 +43,11 @@ from . import host_encoder
 from .decoder import md5_of_samples
 from .encoder import _BPS_CODES, _SAMPLE_RATE_CODES, EncoderConfig, _blocksize_header
 
-__all__ = ["encode_flac_device", "encode_flac_batch_device", "resolve_device", "np_dtype",
-           "to_host", "as_int64"]
+__all__ = ["encode_flac_device", "encode_flac_batch_device", "encode_batch_shards",
+           "resolve_device", "device_scope", "np_dtype", "to_host", "as_int64"]
 
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
+PLAN_CHUNK_FRAMES = 2048   # frames a chunk of the encoder's loop, by default
 
 
 def resolve_device(device) -> torch.device:
@@ -60,6 +63,12 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def device_scope(dev: torch.device):
+    """A context in which ``dev`` is the current CUDA device: the kernels'
+    wrappers launch on the current device (a no-op for the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 # tensors whose values travel as the signed type of their width
@@ -266,7 +275,7 @@ def encode_flac_device(
     vendor: str = "flac-raster-tpu",
     compute_md5: bool = True,
     padding: int = 0,
-    plan_chunk_frames: int = 2048,
+    plan_chunk_frames: int = PLAN_CHUNK_FRAMES,
     zero_point: int = 0,
     device="cuda",
 ) -> bytes:
@@ -356,7 +365,7 @@ def encode_flac_batch_device(
     comments_list=None,
     vendor: str = "flac-raster-tpu",
     compute_md5: bool = True,
-    plan_chunk_frames: int = 2048,
+    plan_chunk_frames: int = PLAN_CHUNK_FRAMES,
     zero_point: int = 0,
     device="cuda",
 ) -> list[bytes]:
@@ -389,23 +398,51 @@ def encode_flac_batch_device(
         return [encode_flac_device(samples_batch[t], sample_rate, bits_per_sample,
                                    comments=comments_list[t], **kw) for t in range(T)]
     dev = resolve_device(device)
+    return encode_batch_shards(samples_batch, sample_rate, bits_per_sample, compression_level,
+                               blocksize, comments_list, vendor, compute_md5, plan_chunk_frames,
+                               zero_point, [(dev, slice(0, T), slice(0, n_full))])
+
+
+def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sample: int,
+                        compression_level: int, blocksize: int, comments_list, vendor: str,
+                        compute_md5: bool, plan_chunk_frames: int, zero_point: int,
+                        shards) -> list[bytes]:
+    """The batch encode's body: T same-shaped streams with at least one
+    full frame, their full frames in ``shards`` -- (device, tiles slice,
+    frames slice) triples that cover the (T, full frames) grid, each run
+    through the chunk loop on its device, its frames tile-major and
+    numbered within their tile.  Frames are byte-aligned, so each stream's
+    bytes are its shards' slices concatenated in frame order; then its
+    tail frame, MD5 and header.  ``encode_flac_batch_device`` is one shard
+    on one device, ``parallel.tile_engine.encode_flac_batch_mesh`` one a
+    grid cell.  Returns the T FLAC streams."""
+    T, n, channels = samples_batch.shape
     _check_stream(channels, bits_per_sample, samples_batch.dtype, blocksize)
     _check_range(samples_batch, samples_batch.dtype, bits_per_sample, zero_point)
     cfg = EncoderConfig.from_level(compression_level)
-    # (T * n_full, N, C): a view when n is a whole number of frames
-    full = samples_batch[:, : n_full * blocksize].reshape(T * n_full, blocksize, channels)
-
-    def frames_of(g0, g1):
-        return _upload(np.ascontiguousarray(full[g0:g1]), dev).permute(0, 2, 1)
-
+    n_full = n // blocksize
+    full = samples_batch[:, : n_full * blocksize].reshape(T, n_full, blocksize, channels)
     layout = _frame_layout(blocksize, bits_per_sample, sample_rate, channels, cfg)
-    frames, sizes, subs = _emit_full_frames(
-        frames_of, np.tile(np.arange(n_full), T), channels, layout, zero_point,
-        max(1, int(plan_chunk_frames)), dev)
-    ends = np.concatenate([[0], np.cumsum(sizes)])
+    pieces: list[list] = [[] for _ in range(T)]
+    for dev, tiles, frames in shards:
+        # (tiles * frames, N, C): a view when the shard holds whole tiles
+        rows = full[tiles, frames].reshape(-1, blocksize, channels)
+
+        def frames_of(g0, g1, rows=rows, dev=dev):
+            return _upload(np.ascontiguousarray(rows[g0:g1]), dev).permute(0, 2, 1)
+
+        nf = frames.stop - frames.start
+        numbers = np.tile(np.arange(frames.start, frames.stop), tiles.stop - tiles.start)
+        with device_scope(dev):
+            body, sizes, subs = _emit_full_frames(frames_of, numbers, channels, layout,
+                                                  zero_point, max(1, int(plan_chunk_frames)), dev)
+        ends = np.concatenate([[0], np.cumsum(sizes)])
+        for k, t in enumerate(range(tiles.start, tiles.stop)):
+            f0, f1 = k * nf, (k + 1) * nf
+            pieces[t].append((body[ends[f0] : ends[f1]], sizes[f0:f1], subs[f0:f1]))
     out = []
     for t in range(T):
-        f0, f1 = t * n_full, (t + 1) * n_full
+        frames_t, sizes_t, subs_t = zip(*pieces[t])
         tail = None
         if n_full * blocksize < n:
             tail = samples_batch[t, n_full * blocksize :].astype(np.int64) - zero_point
@@ -413,6 +450,7 @@ def encode_flac_batch_device(
         if compute_md5:
             md5 = md5_of_samples(samples_batch[t].astype(np.int64) - zero_point, bits_per_sample)
         out.append(_assemble_stream(
-            frames[ends[f0] : ends[f1]], sizes[f0:f1], subs[f0:f1], tail, n, channels,
-            sample_rate, bits_per_sample, blocksize, cfg, md5, comments_list[t], vendor, 0))
+            b"".join(frames_t), np.concatenate(sizes_t), np.concatenate(subs_t), tail, n,
+            channels, sample_rate, bits_per_sample, blocksize, cfg, md5, comments_list[t],
+            vendor, 0))
     return out

@@ -12,8 +12,8 @@ keeps its own normalization and GEOSPATIAL_* metadata.
 The tiles encode in batches of one shape on the device
 (``converter.encode_array_batch``).  A bbox reads back through byte ranges
 (local ``pread`` or ``io.remote.RemoteFile``) and decodes on the host
-(``decode_bbox``) or on the device (``decode_bbox_device``,
-``iter_bbox_to_device``).
+(``decode_bbox``) or on the device (``decode_bbox_device``, all its tiles
+in one batch, and ``iter_bbox_to_device``).
 
 Tile 0's rebuilt header carries no FRTP layout block, in this package as in
 the JAX one (its ``_assemble`` passes no frame sizes), so tile 0 decodes on
@@ -32,11 +32,11 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..codec.device_decoder import decode_flac_device
 from ..codec.device_encoder import resolve_device
 from ..io.geo import Affine, Window
 from ..io.geotiff import open_geotiff
 from ..io.remote import RemoteFile, _shared_executor, is_remote_url
+from ..parallel import decode_flac_batch_mesh, tile_mesh
 from .flac_format import (
     BLOCK_VORBIS_COMMENT,
     build_flac_header,
@@ -408,27 +408,29 @@ class SpatialFLACStreamer:
         ]
 
     def decode_bbox_device(self, bbox: Tuple[float, float, float, float]):
-        """``decode_bbox`` with each tile decoded and inverted on the
-        device: a list of (frame, (bands, h, w) tensor on the device).
+        """``decode_bbox`` with the tiles decoded and inverted on the device:
+        a list of (frame, (bands, h, w) tensor on the device).
 
-        The tiles decode one by one through ``decode_flac_device``;
+        The tiles decode in one batch (``parallel.decode_flac_batch_mesh``
+        on the streamer's device); each tile's inverse follows.
         ``self.last_routes`` then holds each tile's route in the same order
-        (tile 0 of a spatial file takes the host route: its header holds no
-        layout index).
+        (tile 0 of a spatial file takes ``decode_flac_device``'s host route:
+        its header holds no layout index).
         """
         from ..converter import RasterFLACConverter
 
         conv = RasterFLACConverter(device=self.device)
-        out, routes = [], []
-        for f, blob in zip(*self._tiles(bbox)):
-            dec = decode_flac_device(blob, verify_crc=False, device=self.device)
+        frames, blobs = self._tiles(bbox)
+        decoded = decode_flac_batch_mesh(blobs, verify_crc=False,
+                                         mesh=tile_mesh(devices=[self.device]))
+        out = []
+        for f, dec in zip(frames, decoded):
             meta = conv._load_meta(dec.comments, None)
             if meta is None:
                 raise ValueError("tile carries no geospatial metadata")
             out.append((f, conv._denormalize_device_stream(dec, meta, f.window.width,
                                                            f.window.height)))
-            routes.append(dec.route)
-        self.last_routes = routes
+        self.last_routes = [dec.route for dec in decoded]
         return out
 
     def iter_bbox_to_device(self, bbox: Tuple[float, float, float, float]):

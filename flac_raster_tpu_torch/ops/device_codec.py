@@ -176,6 +176,22 @@ def _best_partitions(cost: torch.Tensor, max_po: int, kmax: int):
     return method, po_best, ks_best, best_total, best_total < _BIG
 
 
+def fixed_order_sum(p: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis in an order fixed by its width alone:
+    zero-padded to a power of two, then halved by elementwise adds (a
+    pairwise tree).  PyTorch's CUDA reductions pick their thread layout
+    from the number of rows and each row's alignment, so the same row can
+    round apart inside another batch; this sum cannot."""
+    n = p.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        p = torch.nn.functional.pad(p, (0, width - n))
+    while p.shape[-1] > 1:
+        half = p.shape[-1] // 2
+        p = p[..., :half] + p[..., half:]
+    return p[..., 0]
+
+
 def _levinson_all(r: torch.Tensor):
     """Batched Levinson-Durbin keeping every order.
 
@@ -192,7 +208,7 @@ def _levinson_all(r: torch.Tensor):
     rows, errs = [], []
     for i in range(order):
         if i:
-            acc = r[:, i + 1] - torch.sum(a[:, :i] * r[:, 1 : i + 1].flip(1), dim=1)
+            acc = r[:, i + 1] - fixed_order_sum(a[:, :i] * r[:, 1 : i + 1].flip(1))
         else:
             acc = r[:, i + 1]
         k = torch.where(err > 0, acc / torch.where(err > 0, err, 1.0), 0.0)
@@ -243,14 +259,16 @@ def _lpc_residual(x: torch.Tensor, qc: torch.Tensor, shift: torch.Tensor, order:
 
 
 def _autocorrelation(x: torch.Tensor, order: int, wname: str) -> torch.Tensor:
-    """(B, order+1) float32 autocorrelation of the windowed blocks."""
-    N = x.shape[1]
+    """(B, order+1) float32 autocorrelation of the windowed blocks, each
+    lag summed by :func:`fixed_order_sum` (a block's plan must not depend
+    on the batch it is planned in)."""
+    B, N = x.shape
     w = torch.from_numpy(apodization_window(wname, N)).to(x.device)
     xf = x.to(torch.float32) * w[None, :]
-    rlags = [torch.sum(xf * xf, dim=1)]
-    for lag in range(1, order + 1):
-        rlags.append(torch.sum(xf[:, lag:] * xf[:, : N - lag], dim=1))
-    return torch.stack(rlags, dim=1)
+    prods = torch.zeros((B, order + 1, N), dtype=torch.float32, device=x.device)
+    for lag in range(order + 1):
+        prods[:, lag, : N - lag] = xf[:, lag:] * xf[:, : N - lag]
+    return fixed_order_sum(prods)
 
 
 def _lpc_analyze(x: torch.Tensor, bps_e: torch.Tensor, order: int, precision: int, wname: str):
@@ -258,7 +276,7 @@ def _lpc_analyze(x: torch.Tensor, bps_e: torch.Tensor, order: int, precision: in
 
     Returns (order_arr (B,) int32, qc (B, order) int32, shift (B,) int32,
     lpc_safe (B,) bool, r_lpc (B, N) int32), as ``device_codec._lpc_analyze``.
-    The float32 sums run in PyTorch's order, not XLA's, so coefficients may
+    The float32 sums run in a fixed order, not XLA's, so coefficients may
     differ from the JAX planner's in rare blocks.
     """
     B, N = x.shape

@@ -768,10 +768,9 @@ def test_minmax_inverse_on_card_matches_host(cuda, dtype, stream_bps):
 @pytest.mark.parametrize("level", [1, 5])
 def test_tile_batch_on_card_matches_each_tile(cuda, level):
     """encode_array_batch on the card: every tile (edge tiles with a tail
-    frame too) round-trips, and at level 1 (no float stage) equals
-    encode_array of the tile.  At level 5 the float32 LPC stage's
-    reductions on the card may round apart with the batch's size, so a
-    tile's plan may differ from its own encode's."""
+    frame too) round-trips and equals encode_array of the tile, also at
+    level 5: the float32 LPC stage sums in a fixed order, so a tile's plan
+    does not change with the batch's size."""
     from flac_raster_tpu_torch import RasterFLACConverter
 
     rng = np.random.default_rng(level)
@@ -782,8 +781,7 @@ def test_tile_batch_on_card_matches_each_tile(cuda, level):
     for th, tw in ((256, 256), (44, 256)):
         tiles = np.stack([band[None, :th, i * tw : (i + 1) * tw] for i in range(4)])
         for tile, blob in zip(tiles, conv.encode_array_batch(tiles, compression_level=level)):
-            if level == 1:
-                assert blob == conv.encode_array(tile, compression_level=level)
+            assert blob == conv.encode_array(tile, compression_level=level)
             assert np.array_equal(conv.decode_bytes(blob)[0], tile)
 
 
@@ -810,3 +808,117 @@ def test_bbox_decode_onto_card(cuda, tmp_path):
     for f, tile in got:
         assert streamed[f.frame_id].device.type == "cuda"
         assert torch.equal(streamed[f.frame_id], tile)
+
+
+@pytest.fixture(scope="module")
+def band_tile_row():
+    """The first 512 rows of chip_smoke's 10980 x 10980 band: its first
+    tile row of 21 tiles of 512 x 512 (64 blocks of 4096 each, row-major),
+    as the planner sees them (zero point 32768): (21, 64, 4096) int32."""
+    from chip_smoke import make_raster
+
+    band = make_raster(10980)[:512, : 21 * 512].astype(np.int32) - 32768
+    return np.ascontiguousarray(band.reshape(512, 21, 512).transpose(1, 0, 2)).reshape(21, 64,
+                                                                                       4096)
+
+
+def _lpc_stages(x, level_kw):
+    """Every intermediate of the level-5 float stage, then the Rice search
+    and the whole plan, of (B, 4096) int32 blocks on the card."""
+    from flac_raster_tpu_torch.ops import device_codec as dc
+
+    bps_e = torch.full((x.shape[0],), 16, dtype=torch.int64, device=x.device)
+    r = dc._autocorrelation(x, 8, "tukey(0.5)")
+    coeffs_all, errs = dc._levinson_all(r)
+    order, qc, shift, safe, resid = dc._lpc_analyze(x, bps_e, 8, 15, "tukey(0.5)")
+    _, zall, oall = dc._candidates(x, [(order, qc, shift, safe, resid)])
+    B = x.shape[0]
+    rice = dc._rice_search(zall, oall, 4096, 6)
+    stages = {"autocorrelation": r, "levinson coefficients": coeffs_all, "levinson errors": errs,
+              "estimate and argmin (order)": order, "quantization (qcoeffs)": qc,
+              "quantization (shift)": shift, "residual": resid}
+    stages.update({f"rice search ({k})": v.reshape(-1, B, *v.shape[1:]).transpose(0, 1)
+                   for k, v in zip(("method", "po", "ks", "bits", "valid"), rice)})
+    plan = dc.plan_blocks(x, blocksize=4096, bps=16, **level_kw)
+    stages.update({f"plan ({k})": v for k, v in plan.items()})
+    return stages
+
+
+def test_level5_plan_is_batch_invariant(cuda, band_tile_row):
+    """A tile row of the 10980 x 10980 band planned tile by tile (64
+    blocks), and inside batches of 64 and 484 tiles' frames (at an odd row
+    offset), gives the same value at every step of the float32 LPC stage,
+    the Rice search and the plan; so do 2-block tiles (a 44 x 256 edge
+    tile) alone and 4 of them together, at level 5 and at level 8 (several
+    windows: the window pick)."""
+    from flac_raster_tpu_torch.codec.encoder import EncoderConfig
+
+    def kw(level):
+        cfg = EncoderConfig.from_level(level)
+        return dict(max_lpc_order=cfg.max_lpc_order, max_partition_order=cfg.max_partition_order,
+                    use_lpc=cfg.use_lpc, apodizations=cfg.apodizations)
+
+    row = torch.from_numpy(band_tile_row).to(cuda)
+    alone = [_lpc_stages(tile, kw(5)) for tile in row]
+    blocks = row.reshape(-1, 4096)
+    rng = np.random.default_rng(0)
+    for n_tiles in (64, 484):
+        n = blocks.shape[0]
+        filler = blocks[torch.from_numpy(rng.integers(0, n, n_tiles * 64 - n)).to(cuda)]
+        batch = torch.cat([filler[:3], blocks, filler[3:]])
+        got = _lpc_stages(batch, kw(5))
+        for name, value in got.items():
+            want = torch.cat([a[name] for a in alone])
+            assert torch.equal(value[3 : 3 + n], want), f"{n_tiles} tiles: {name} differs"
+        del got, batch
+    small = blocks[:8].reshape(4, 2, 4096)
+    for level in (5, 8):
+        together = _lpc_stages(small.reshape(8, 4096), kw(level))
+        for t in range(4):
+            for name, value in _lpc_stages(small[t], kw(level)).items():
+                assert torch.equal(together[name][2 * t : 2 * t + 2], value), \
+                    f"level {level}, 2-block tile {t}: {name} differs"
+
+
+def test_batch_decode_on_card_matches_per_tile_decode(cuda):
+    """decode_flac_batch_mesh on the card's grid of one device: every tile
+    equal to decode_flac_device's, with both Rice engines; tiles without a
+    layout block take decode_flac_device's host route alone."""
+    from flac_raster_tpu_torch import decode_flac_device, encode_flac_device
+    from flac_raster_tpu_torch.models.flac_format import build_flac_header, parse_flac_metadata
+    from flac_raster_tpu_torch.parallel import decode_flac_batch_mesh, tile_mesh
+
+    rng = np.random.default_rng(5)
+    blobs = []
+    for frames, tail, C in ((3, 100, 1), (0, 500, 1), (5, 0, 1), (2, 7, 1), (4, 4095, 1)):
+        x = np.cumsum(rng.integers(-40, 41, (frames * 4096 + tail, C)), axis=0).astype(np.int32)
+        blobs.append(encode_flac_device(x, 44100, 16, compression_level=5, device=cuda))
+    si, _, start = parse_flac_metadata(blobs[0])
+    blobs.append(build_flac_header(si) + blobs[0][start:])
+    for scan in ("full", "group"):
+        got = decode_flac_batch_mesh(blobs, mesh=tile_mesh(devices=[cuda]), scan=scan)
+        assert [d.route.startswith("host: ") for d in got] == [False] * 5 + [True]
+        for d, b in zip(got, blobs):
+            want = decode_flac_device(b, device=cuda, scan=scan).samples
+            assert d.samples.device == want.device and torch.equal(d.samples, want)
+
+
+@pytest.mark.parametrize("level", [1, 5])
+def test_grid_encode_on_card_1x2_equals_1x1(cuda, level):
+    """encode_flac_batch_mesh on a 1 x 2 grid of the card (each tile's
+    frames split in two shards) equals the 1 x 1 grid's bytes and
+    encode_flac_device of each tile."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.parallel import encode_flac_batch_mesh, tile_mesh
+
+    rng = np.random.default_rng(level)
+    t = np.arange(5 * 4096 + 333)
+    x = 20000 + 9000 * np.sin(t / 370.0)[None, :, None] + rng.normal(0, 20, (6, t.size, 1))
+    x = np.clip(x, 0, 65535).astype(np.uint16)
+    kw = dict(zero_point=32768, compute_md5=True)
+    one = encode_flac_batch_mesh(x, 44100, 16, level, mesh=tile_mesh(devices=[cuda]), **kw)
+    two = encode_flac_batch_mesh(x, 44100, 16, level,
+                                 mesh=tile_mesh(devices=[cuda, cuda], blocks_axis=2), **kw)
+    assert one == two
+    for blob, tile in zip(one, x):
+        assert blob == encode_flac_device(tile, 44100, 16, level, device=cuda, **kw)

@@ -25,6 +25,8 @@ from flac_raster_tpu_torch.codec import host_encoder
 from flac_raster_tpu_torch import compare
 from flac_raster_tpu_torch.io import geo, geotiff, remote
 from flac_raster_tpu_torch.models import spatial, streaming
+from flac_raster_tpu_torch import parallel
+from flac_raster_tpu_torch.parallel import decode_mesh, mesh, multihost, tile_engine
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flac_raster_tpu"))
