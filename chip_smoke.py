@@ -98,7 +98,23 @@ is not 0:
      as the worker) through ``encode_tiles_multihost``,
      ``assemble_sharded_container`` and ``decode_container_tiles_multihost``:
      the container equal to one process's; a worker that fails or outlives
-     240 s fails the run.
+     240 s fails the run;
+ 20. the command line on the card, in-process through
+     ``flac_raster_tpu_torch.cli.main``: ``convert`` of the phase-15 GeoTIFF
+     to FLAC with ``--trace`` (the trace must hold the convert's kernels and
+     the ``frtt.stage.*`` ranges), ``info``, ``extract --rows 4000:512``,
+     ``query`` of the phase-16 spatial file, ``convert`` back to TIFF and
+     ``compare`` with the source (equal arrays); then, with ``-v``,
+     ``convert --minmax`` and, traced too, ``convert`` of a float32 DEM
+     written as a DEFLATE GeoTIFF (the wide planner) and ``convert
+     --spatial``, logging the stage timers and the traces' ``frtt.*`` host
+     ranges; each command timed with launch counts;
+ 21. ``flac_raster_tpu_torch.utils.selftest`` on the card: every check OK
+     (its kernel-vs-plain launches are not counted).
+
+Phases 18 and 19 also time the CRC-16 check the row reads and the device
+bbox read make: the range decode and the batch decode of every tile with
+and without it, in turns.
 
 Phase 6 holds the window gather on every ``word0 & 3``, on windows before
 the body and past it, and on body views 4, 8 and 12 bytes past a 16-byte
@@ -118,7 +134,9 @@ kernel in the last JSON line must have launched on some path.  Each
 kernel's entry carries its time, its plain version's, the bound (the
 larger of its bytes over the HBM rate and its operations over the ALU
 rate) and, where one exists, a PyTorch call computing the same function.
-The last three lines of standard output are that JSON object, the
+Phase 2, 6 and 11's kernel-vs-plain checks and the scene builders live in
+``flac_raster_tpu_torch/utils/selftest.py``, which phase 21 runs at small
+shapes.  The last three lines of standard output are that JSON object, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.  Without CUDA it exits with code 2 and prints no result.  It
 imports nothing of JAX.
@@ -134,6 +152,28 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from flac_raster_tpu_torch.utils.selftest import (
+    SCAN_KEYS,
+    check_gather,
+    check_group_step,
+    check_hostile_pack,
+    check_packs,
+    check_restore,
+    check_rice_cost,
+    check_rice_scan,
+    decode_chunk,
+    lane_headers,
+    level5_chunk,
+    level5_tokens,
+    make_dem,
+    make_minmax_dem,
+    make_raster,
+    make_stereo,
+    midside_tokens,
+    rice_cost_input,
+    with_hostile_lane,
+)
 
 SCENE_SIZE = 8192
 LEVEL = 5
@@ -167,52 +207,6 @@ JAX_MINMAX_DEM_FRAME_BYTES = 25113267
 SPATIAL_TILE = 512
 JAX_SPATIAL_FRAME_BYTES = 104172219
 SIZE_ENVELOPE = 1.0025
-
-
-def make_raster(size: int) -> np.ndarray:
-    """Synthetic terrain: smooth multiscale field + sensor noise, uint16
-    (the scene generator of bench.py, which imports JAX)."""
-    rng = np.random.default_rng(42)
-    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
-    field = (
-        8000.0 * np.sin(xx / 901.0) * np.cos(yy / 677.0)
-        + 3000.0 * np.sin((xx + yy) / 269.0)
-        + 500.0 * np.sin(xx / 31.0) * np.sin(yy / 47.0)
-    )
-    field += rng.normal(0, 12.0, field.shape)
-    field -= field.min()
-    return field.astype(np.uint16)
-
-
-def make_dem(size: int) -> np.ndarray:
-    """A float32 DEM in metres: (make_raster(size) - 32768) / 8, a square
-    void of NaNs (size // 10 on a side, ~1% of the pixels), one -0.0, +inf,
-    -inf and a NaN with a payload in the first column."""
-    dem = (make_raster(size).astype(np.float32) - np.float32(32768)) * np.float32(0.125)
-    v = size // 10
-    dem[v : 2 * v, 3 * v : 4 * v] = np.nan
-    dem[0, 0] = -0.0
-    dem[1, 0] = np.inf
-    dem[2, 0] = -np.inf
-    dem.view(np.uint32)[3, 0] = 0x7FA00001
-    return dem
-
-
-def make_minmax_dem(size: int) -> np.ndarray:
-    """make_dem(size) with its +inf and -inf set to 0: an infinite value
-    would make the minmax range infinite and every sample 0."""
-    dem = make_dem(size)
-    dem[np.isinf(dem)] = 0.0
-    return dem
-
-
-def make_stereo(size: int) -> np.ndarray:
-    """Two correlated uint16 bands (2, size, size): band 0 is
-    make_raster(size), band 1 = clip(0.9 * band 0 + 1500 + N(0, 8))."""
-    band0 = make_raster(size)
-    rng = np.random.default_rng(7)
-    band1 = 0.9 * band0 + 1500.0 + rng.normal(0, 8.0, band0.shape)
-    return np.stack([band0, np.clip(band1, 0, 65535).astype(np.uint16)])
 
 
 def reference_file(raster: np.ndarray, level: int, device, sidecar: bool = False):
@@ -295,19 +289,6 @@ def events_and_host_ms(fn, iters: int) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, host * 1e3 / iters
-
-
-def cuda_once(fn):
-    """(fn(), its device time in ms) for one run with no warm-up."""
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
 
 
 M32 = 0xFFFFFFFF
@@ -431,20 +412,11 @@ def pack_versions(samples, hdr, n_words: int, N: int, label: str) -> dict:
     from flac_raster_tpu_torch.ops import pack
 
     sv, sl, so = samples
-    ref = pack.pack_tokens_reference(sv, sl, so, n_words, out=hdr.clone())
     res = {"plain": cuda_ms(lambda: pack.pack_tokens_reference(sv, sl, so, n_words,
                                                                  out=hdr.clone()),
                             iters=3, warmup=1)}
     err = torch.zeros(1, dtype=torch.int32, device=sv.device)
-    for v in pack.VERSIONS:
-        got = pack.pack_tokens(sv, sl, so, n_words, out=hdr.clone(), version=v,
-                               slots_per_group=N, err=err)
-        torch.cuda.synchronize()
-        if int(err):
-            raise AssertionError(f"pack {v} flagged the {label} sample stream")
-        if not torch.equal(got, ref):
-            raise AssertionError(f"pack {v} differs from its plain version on the {label} stream")
-        max_err = int(((got.long() & M32) - (ref.long() & M32)).abs().max())
+    for v, max_err in check_packs(samples, hdr, n_words, label).items():
         buf = hdr.clone()
         ms = cuda_ms(lambda: pack.pack_tokens(sv, sl, so, n_words, out=buf, version=v,
                                               slots_per_group=N, err=err), iters=20)
@@ -478,7 +450,7 @@ def pack_versions(samples, hdr, n_words: int, N: int, label: str) -> dict:
     return res
 
 
-def hostile_pack(samples, n_words: int, N: int) -> float:
+def hostile_pack(samples, n_words: int) -> float:
     """A sample stream with a 200 000-bit jump mid-tile: v2-v4 must set
     err (as the plain check does), v1/v5 must still equal plain, and no
     version may write past n_words.  Then a shuffled copy of the stream
@@ -487,38 +459,10 @@ def hostile_pack(samples, n_words: int, N: int) -> float:
 
     from flac_raster_tpu_torch.ops import pack
 
-    sv, sl, so = samples
-    so = so.clone()
-    so[so.numel() // 2 + 37 :] += 200_000    # inside a sub-tile and a tile
-    n2 = n_words + 200_000 // 32
-    expect = {v: pack.window_err_reference(sl.cpu(), so.cpu(), v, N) for v in pack.VERSIONS}
-    ref = pack.pack_tokens_reference(sv, sl, so, n2)
-    err = torch.zeros(1, dtype=torch.int32, device=sv.device)
-    for v in pack.VERSIONS:
-        buf = torch.full((n2 + 256,), -1, dtype=torch.int32, device=sv.device)
-        buf[:n2] = 0
-        err.zero_()
-        pack.pack_tokens(sv, sl, so, n2, out=buf[:n2], version=v, slots_per_group=N, err=err)
-        torch.cuda.synchronize()
-        if not bool((buf[n2:] == -1).all()):
-            raise AssertionError(f"pack {v} wrote past n_words")
-        if bool(int(err)) != expect[v] or expect[v] != (v in pack.WINDOWED):
-            raise AssertionError(f"pack {v}: err {int(err)}, plain check {expect[v]}")
-        if v not in pack.WINDOWED and not torch.equal(buf[:n2], ref):
-            raise AssertionError(f"pack {v} differs from plain on the hostile stream")
+    sv, sl, so = check_hostile_pack(samples, n_words)
     log("hostile sample stream (for v5 a window-overflow stream: one block spans the "
         "jump): v2-v4 set err as the plain check does, v1/v5 equal plain, nothing written "
         "past n_words")
-
-    # a shuffled copy of the stream: every v5 block takes the direct route
-    perm = torch.randperm(so.numel(), generator=torch.Generator().manual_seed(5)).to(so.device)
-    sv, sl, so = sv[perm], sl[perm], samples[2][perm]
-    ref = pack.pack_tokens_reference(sv, sl, so, n_words)
-    for v in ("v1", "v5"):
-        got = pack.pack_tokens(sv, sl, so, n_words, version=v)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"pack {v} differs from plain on the shuffled stream")
     buf = torch.zeros(n_words, dtype=torch.int32, device=sv.device)
     ms = cuda_ms(lambda: pack.pack_tokens(sv, sl, so, n_words, out=buf, version="v5"), iters=10)
     log(f"shuffled sample stream: v1 and v5 equal plain; v5 {ms:.4f} ms (direct route)")
@@ -528,40 +472,16 @@ def hostile_pack(samples, n_words: int, N: int) -> float:
 def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
     """Encode kernels vs plain versions on one real level-5 chunk, and the
     pack versions on a level-8 mid-side chunk too."""
-    import torch
-
-    from flac_raster_tpu_torch.codec.encoder import (
-        _BPS_CODES, _SAMPLE_RATE_CODES, EncoderConfig, _blocksize_header,
-    )
-    from flac_raster_tpu_torch.ops import device_codec as dc
-    from flac_raster_tpu_torch.ops import device_emit as de
     from flac_raster_tpu_torch.ops import pack, rice_cost
 
     N, F = 4096, CHUNK_FRAMES
-    rows = torch.from_numpy(scene.reshape(-1)[: F * N].view(np.int16)).to(dev).view(torch.uint16)
-    x = de.normalize(rows.reshape(F, 1, N), 1 << 15)
-    blocks = x.reshape(F, N)
-    bps_e = torch.full((F,), 16, dtype=torch.int64, device=dev)
-    lpc = dc._lpc_analyze(blocks, bps_e, 8, dc.PRECISION, "tukey(0.5)")
-    _, z, order = dc._candidates(blocks, [lpc])
-    z = dc._mask_warmup(z, order.long()).clone()
-    z[1, 64:128] = -1          # a partition of 0xFFFFFFFF
-    z[2] = 0                   # all-zero partitions
+    x = level5_chunk(scene, F, dev)
+    z = rice_cost_input(x.reshape(F, N))
     parts = 64
     log(f"rice_cost_sums input: z {tuple(z.shape)} int32, parts {parts}")
 
+    rice_err = check_rice_cost(z, parts)
     sums_k, zmax_k = rice_cost.rice_cost_sums(z, parts)
-    sums_p, zmax_p = rice_cost.rice_cost_sums_reference(z, parts)
-    torch.cuda.synchronize()
-    rice_err = max(
-        int((sums_k.long() - sums_p.long()).abs().max()),
-        int(((zmax_k.long() & M32) - (zmax_p.long() & M32)).abs().max()),
-    )
-    for k in range(rice_cost.KMAX + 1):
-        if not torch.equal(sums_k[:, k], sums_p[:, k]):
-            raise AssertionError(f"rice_cost_sums differs from its plain version at k={k}")
-    if not torch.equal(zmax_k, zmax_p):
-        raise AssertionError("rice_cost_sums zmax differs from its plain version")
     rice_ms = cuda_ms(lambda: rice_cost.rice_cost_sums(z, parts), iters=20)
     rice_plain_ms = cuda_ms(lambda: rice_cost.rice_cost_sums_reference(z, parts), iters=3, warmup=1)
     # z read once, the (B, 21, parts) sums and (B, parts) maxima written
@@ -569,42 +489,26 @@ def phase_kernels(scene: np.ndarray, stereo: np.ndarray, dev) -> list[dict]:
     rice_bound = bound(z.numel() * 4 + (sums_k.numel() + zmax_k.numel()) * 4,
                        z.numel() * (rice_cost.KMAX + 1) * 3)
     # partitions whose max passes the clamp: the kernel's per-sample branch
-    clamped = int(((zmax_p.long() & M32) > rice_cost.QCLAMP).sum())
+    clamped = int(((zmax_k.long() & M32) > rice_cost.QCLAMP).sum())
     log(f"rice_cost_sums: identical to plain at every k (tolerance 0: integer table); "
         f"kernel {rice_ms:.4f} ms ({share(rice_bound, rice_ms)}), plain {rice_plain_ms:.4f} ms, "
-        f"bound {rice_bound}; {clamped} of {zmax_p.numel()} partitions past the clamp")
-    del z, sums_k, sums_p, zmax_k, zmax_p
+        f"bound {rice_bound}; {clamped} of {zmax_k.numel()} partitions past the clamp")
+    del z, sums_k, zmax_k
 
-    plan = dc.plan_blocks(blocks, blocksize=N, bps=16, max_lpc_order=8,
-                          max_partition_order=6, use_lpc=True)
-    bs_code, bs_tail_val, bs_tail_bits = _blocksize_header(N)
-    layout = dict(blocksize=N, bps=16, sr_code=_SAMPLE_RATE_CODES.get(96000, 0),
-                  bps_code=_BPS_CODES[16], bs_code=bs_code, bs_tail_bits=bs_tail_bits,
-                  bs_tail_val=bs_tail_val, max_partition_order=6)
-    tok = de.emit_tokens(x, plan, torch.arange(F, device=dev), **layout)
-    n_words = de.worst_case_words(F, 1, N, 16)
+    tok, n_words = level5_tokens(x)
     log(f"pack input, level 5: header {tok['header'][0].numel()} + samples "
         f"{tok['samples'][0].numel()} tokens, {n_words} words")
     hdr = pack.pack_tokens(*tok["header"], n_words)
     l5 = pack_versions(tok["samples"], hdr, n_words, N, "level-5")
     l5_lib = index_add_ms(tok["samples"], n_words)
-    v5_shuffled_ms = hostile_pack(tok["samples"], n_words, N)
-    del plan, tok, hdr, lpc, blocks, x
+    v5_shuffled_ms = hostile_pack(tok["samples"], n_words)
+    del tok, hdr, x
 
     # one level-8 mid-side chunk of the stereo scene
-    cfg = EncoderConfig.from_level(8)
-    lr = np.ascontiguousarray(stereo.reshape(2, -1)[:, : F * N])
-    xs = de.normalize(torch.from_numpy(lr.view(np.int16)).to(dev).view(torch.uint16)
-                      .reshape(2, F, N).permute(1, 0, 2), 1 << 15)
-    plan, xs, codes, ch_bps = de._plan_mid_side(
-        xs, 16, blocksize=N, max_lpc_order=cfg.max_lpc_order, max_partition_order=6,
-        use_lpc=True, apodizations=cfg.apodizations)
-    tok = de.emit_tokens(xs, plan, torch.arange(F, device=dev), chan_code=codes,
-                         ch_bps=ch_bps, **layout)
-    n_words = de.worst_case_words(F, 2, N, 17)
+    tok, n_words = midside_tokens(stereo, F, dev)
     hdr = pack.pack_tokens(*tok["header"], n_words)
     l8 = pack_versions(tok["samples"], hdr, n_words, N, "level-8 mid-side")
-    del plan, tok, hdr, xs
+    del tok, hdr
 
     out = [kernel_entry("rice_cost_sums", "rice_cost.cu",
                         "flac_raster_tpu/ops/pallas_kernels.py:172", rice_err, rice_ms,
@@ -681,26 +585,12 @@ def group_step_phase(words, args, N: int, label: str, file_lanes: int | None = N
     and bounds."""
     import torch
 
-    from flac_raster_tpu_torch.ops import rice_group, rice_scan
+    from flac_raster_tpu_torch.ops import rice_group
 
-    rstart, err, rest = args[0], args[1], args[2:]
+    rest = args[2:]
     B, g = words.shape[0], rice_group.GROUP
-    zs0 = torch.zeros((N, B), dtype=torch.int32, device=words.device)
-    c0 = [rstart.clone(), torch.zeros_like(rstart), err.clone()]
-    rice_group.rice_group_step(words, *c0, *rest, zs0, 0)
-    mine, ref = [c.clone() for c in c0], [c.clone() for c in c0]
-    zs_k, zs_p = zs0.clone(), zs0.clone()
-    rice_group.rice_group_step(words, *mine, *rest, zs_k, g)
-    _, plain_ms = cuda_once(
-        lambda: rice_group.rice_group_step_reference(words, *ref, *rest, zs_p, g))
-    if not (all(torch.equal(a, b) for a, b in zip(mine, ref)) and torch.equal(zs_k, zs_p)):
-        raise AssertionError(f"rice_group_step differs from its plain version on the {label} chunk")
-    step_err = int(((zs_k.long() & M32) - (zs_p.long() & M32)).abs().max())
-    full = rice_scan.rice_scan_full(words, *args, N)
-    grouped = rice_group.rice_scan_grouped(words, *args, N)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(grouped, full)):
-        raise AssertionError(f"the grouped scan differs from rice_scan_full on the {label} chunk")
+    st = check_group_step(words, args, N, label)
+    c0, mine, zs_k, step_err, plain_ms = st["c0"], st["mine"], st["zs"], st["err"], st["plain_ms"]
 
     # one step timed alone with events around the Python call (so the
     # host's dispatch of the step is inside the window): the carries are
@@ -778,38 +668,20 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     """Decode kernel vs plain version on the first chunk of F frames."""
     import torch
 
-    from flac_raster_tpu_torch.codec.device_decoder import prepare_frames
-    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
     from flac_raster_tpu_torch.ops import gather, restore, rice_scan
-    from flac_raster_tpu_torch.ops.bits import M32
-    from flac_raster_tpu_torch.ops.device_decode import parse_header
 
-    si, blocks, frame_start = parse_flac_metadata(blob)
-    N = si.max_blocksize
-    prep = prepare_frames(blob, frame_start, parse_layout_block(blocks), si, 0, F, dev)
-    body, word0, W = prep["body"], prep["word0"], prep["W"]
-    # the last window runs past the body: the kernel must zero-fill it
-    word0_z = torch.cat([word0, torch.tensor([body.numel() - W // 2], device=dev)])
-    log(f"gather_windows input: body {body.numel()} words, {word0_z.numel()} windows of {W} words")
-    win_k = gather.gather_windows(body, word0_z, W)
-    win_p = gather.gather_windows_reference(body, word0_z, W)
-    torch.cuda.synchronize()
-    if not torch.equal(win_k, win_p):
-        raise AssertionError("gather_windows differs from its plain version")
-    if win_k[-1, W - W // 2 :].any():
-        raise AssertionError("gather_windows read past the body")
-    # every word0 & 3, windows before 0 and past R, and the same windows
-    # from a body view whose base lies 4, 8 or 12 bytes past a 16-byte line
+    chunk = decode_chunk(blob, F, dev)
+    N = chunk["si"].max_blocksize
+    body, word0, W = chunk["body"], chunk["word0"], chunk["W"]
+    # the chunk's windows plus one past the body (the kernel must zero-fill
+    # it); windows before 0 and past R at every word0 & 3, from body views
+    # whose base lies 4, 8 or 12 bytes past a 16-byte line
+    log(f"gather_windows input: body {body.numel()} words, {word0.numel() + 1} windows of {W} words")
+    windows, gather_err = check_gather(body, word0, W)
+    # the real chunk holds every word0 & 3 offset
     offsets = np.bincount(word0.cpu().numpy() & 3, minlength=4)
     if not offsets.all():
         raise AssertionError(f"the chunk lacks a word0 & 3 offset: {offsets}")
-    edges = torch.tensor([s + d for s in range(4) for d in (-1 - s, -(W // 2), body.numel() - 3)],
-                         device=dev)
-    for view in range(4):
-        w0 = torch.cat([word0, edges]) - view
-        got = gather.gather_windows(body[view:], w0, W)
-        if not torch.equal(got, gather.gather_windows_reference(body[view:], w0, W)):
-            raise AssertionError(f"gather_windows differs from plain on a body view at +{view}")
     a_ms = cuda_ms(lambda: gather.gather_windows(body, word0, W), iters=20)
     # the kernel alone (no host in it), and the host's enqueue of a call
     a_dev_ms = profiled_kernel_ms(lambda: [gather.gather_windows(body, word0, W)
@@ -832,7 +704,7 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     cols = torch.arange(W, device=dev)
     a_lib_ms = cuda_ms(lambda: padded[word0[:, None] + cols], iters=20)
     # a contiguous copy of as many bytes: what a plain copy takes on the card
-    src, dst = torch.empty_like(win_p[:F]), torch.empty_like(win_p[:F])
+    src, dst = torch.empty_like(windows), torch.empty_like(windows)
     a_copy_ms = cuda_ms(lambda: dst.copy_(src), iters=20)
     a_bound = bound(2 * word0.numel() * W * 4, 0)       # each window word read and written
     dev_txt = ", ".join("not measured" if t is None else f"{t:.4f} ms ({share(a_bound, t)})"
@@ -846,29 +718,12 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         f"bound {a_bound}")
     del src, dst
 
-    windows = win_k[:F]
-    eb = torch.full((F,), si.bits_per_sample, dtype=torch.int64, device=dev)
-    h = parse_header(windows.long() & M32, prep["sf"][:, 0], eb,
-                     torch.zeros(F, dtype=torch.bool, device=dev), N=N)
-    # one hostile lane: random words, a Rice header with 5-bit parameters
-    rng = np.random.default_rng(7)
-    hostile = rng.integers(0, 1 << 32, (1, W), dtype=np.uint64).astype(np.uint32).view(np.int32)
-    words_b = torch.cat([windows, torch.from_numpy(hostile).to(dev)])
-
-    def lane(key, value):
-        return torch.cat([h[key], torch.tensor([value], dtype=h[key].dtype, device=dev)])
-
-    scan_args = [lane("rstart", 3), lane("err", False), lane("is_rice", True), lane("order", 2),
-                 lane("n_codes", N - 2), lane("pbits", 5), lane("psm", N // 4 - 1)]
+    # the file's lanes plus one hostile lane: random words, a Rice header
+    # with 5-bit parameters
+    lanes = with_hostile_lane(windows, lane_headers(chunk, windows), W, N)
+    words_b, scan_args = lanes["words"], lanes["args"]
     log(f"rice_scan_full input: words {tuple(words_b.shape)} int32 ({F} lanes + 1 hostile), N {N}")
-    zs_k, rend_k, err_k = rice_scan.rice_scan_full(words_b, *scan_args, N)
-    (zs_p, rend_p, err_p), b_plain_ms = cuda_once(
-        lambda: rice_scan.rice_scan_full_reference(words_b, *scan_args, N))
-    scan_err = int(((zs_k.long() & M32) - (zs_p.long() & M32)).abs().max())
-    if not (torch.equal(zs_k, zs_p) and torch.equal(rend_k, rend_p) and torch.equal(err_k, err_p)):
-        raise AssertionError("rice_scan_full differs from its plain version")
-    if err_k[:F].any():
-        raise AssertionError("rice_scan_full flagged a lane of a valid file")
+    (zs_k, _, err_k), scan_err, b_plain_ms = check_rice_scan(words_b, scan_args, N, F)
     # timed on the file's lanes, the main path's shape; the hostile lane,
     # alone in its warp, takes the reader's general path at most codes
     file_args = [a[:F] for a in scan_args]
@@ -886,16 +741,8 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     k9 = group_step_phase(words_b, scan_args, N, "level-5", file_lanes=F)
 
     # the hostile lane restores with 16-bit coefficients: int32 wraparound
-    coefs = torch.cat([h["coefs"], torch.from_numpy(
-        rng.integers(-32768, 32768, (1, 12)).astype(np.int32)).to(dev)])
-    warm = torch.cat([h["warm"], torch.from_numpy(
-        rng.integers(-(1 << 31), 1 << 31, (1, 12)).astype(np.int32)).to(dev)])
-    rest_args = [zs_k, lane("order", 12), coefs, lane("shift", 3), warm, N]
-    sig_k = restore.restore(*rest_args)
-    sig_p, c_plain_ms = cuda_once(lambda: restore.restore_reference(*rest_args))
-    rest_err = int((sig_k.long() - sig_p.long()).abs().max())
-    if not torch.equal(sig_k, sig_p):
-        raise AssertionError("restore differs from its plain version")
+    rest_args = [zs_k, lanes["order"], lanes["coefs"], lanes["shift"], lanes["warm"], N]
+    _, rest_err, c_plain_ms = check_restore(rest_args)
     c_ms = cuda_ms(lambda: restore.restore(*rest_args), iters=10, warmup=1)
     # zs read and samples written once; a multiply and an add per tap
     c_bound = bound(2 * zs_k.numel() * 4, 2 * N * int(rest_args[1].long().sum()))
@@ -903,7 +750,7 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         f"({share(c_bound, c_ms)}), plain {c_plain_ms:.4f} ms (one call), bound {c_bound}")
     return [
         kernel_entry("gather_windows", "gather.cu", "flac_raster_tpu/ops/pallas_gather.py:60",
-                     int((win_k.long() - win_p.long()).abs().max()), a_ms, a_plain_ms,
+                     gather_err, a_ms, a_plain_ms,
                      a_bound, a_lib_ms, ms_device=a_dev_ms, ms_device_l2_flushed=a_cold_ms,
                      ms_events_100=a_ev_ms,
                      ms_host_enqueue=a_host_ms, ms_contiguous_copy=a_copy_ms),
@@ -971,31 +818,20 @@ def decode_on_card(blob: bytes, raster: np.ndarray, dev, card: str, label: str,
 def phase_wide_kernels(blob: bytes, dev) -> dict:
     """The Rice engines and the wide restore against their plain versions
     on the 32-bps file's chunk of full frames (one lane per frame)."""
-    import torch
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
+    from flac_raster_tpu_torch.ops import gather, restore, rice_scan
 
-    from flac_raster_tpu_torch.codec.device_decoder import prepare_frames
-    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
-    from flac_raster_tpu_torch.ops import gather, restore
-    from flac_raster_tpu_torch.ops.device_decode import parse_header
-
-    si, blocks, frame_start = parse_flac_metadata(blob)
+    si = parse_flac_metadata(blob)[0]
     N, F = si.max_blocksize, si.total_samples // si.max_blocksize
-    prep = prepare_frames(blob, frame_start, parse_layout_block(blocks), si, 0, F, dev)
-    windows = gather.gather_windows(prep["body"], prep["word0"], prep["W"])
-    h = parse_header(windows.long() & M32, prep["sf"][:, 0],
-                     torch.full((F,), si.bits_per_sample, device=dev),
-                     torch.zeros(F, dtype=torch.bool, device=dev), N=N, wide=True)
-    args = [h[k] for k in ("rstart", "err", "is_rice", "order", "n_codes", "pbits", "psm")]
+    chunk = decode_chunk(blob, F, dev, wide=True)
+    windows = gather.gather_windows(chunk["body"], chunk["word0"], chunk["W"])
+    h = lane_headers(chunk, windows)
+    args = [h[k] for k in SCAN_KEYS]
     k9 = group_step_phase(windows, args, N, "wide")
-
-    from flac_raster_tpu_torch.ops import rice_scan
 
     zs = rice_scan.rice_scan_full(windows, *args, N)[0]
     rest_args = [zs, h["order"], h["coefs"], h["shift"], h["warm"], N]
-    sig_k = restore.restore(*rest_args, wide=True)
-    sig_p, plain_ms = cuda_once(lambda: restore.restore_reference(*rest_args, wide=True))
-    if not torch.equal(sig_k, sig_p):
-        raise AssertionError("the wide restore differs from its plain version")
+    _, rest_err, plain_ms = check_restore(rest_args, wide=True)
     ms = cuda_ms(lambda: restore.restore(*rest_args, wide=True), iters=10, warmup=1)
     # zs read and samples written once; a 64-bit multiply-add per tap
     # counted as two operations
@@ -1003,7 +839,6 @@ def phase_wide_kernels(blob: bytes, dev) -> dict:
     log(f"restore, wide ({F} lanes): identical to plain (tolerance 0: int64 sum, int32 "
         f"wraparound); kernel {ms:.4f} ms ({share(rest_bound, ms)}), plain {plain_ms:.4f} ms "
         f"(one call), bound {rest_bound}")
-    rest_err = int((sig_k.long() - sig_p.long()).abs().max())
     return {"k9": k9, "restore": {"ms_wide": ms, "plain_ms_wide": plain_ms,
                                   "bound_ms_wide": rest_bound["bound_ms"],
                                   "max_abs_err_wide": rest_err}}
@@ -1512,6 +1347,15 @@ def rows_phase(scene: np.ndarray, path, card: str, dev) -> None:
     log(f"sample range {span}: decode_flac_device {dt * 1e3:.1f} ms on the device route "
         f"(launches {launches}), decode_flac_range {t_host * 1e3:.1f} ms on the host; equal | "
         f"{card}")
+    # the CRC-16 check decode_rows and decode_rows_ranged make: the range
+    # decode of the rows with and without it, in turns
+    times = {False: [], True: []}
+    for crc in (False, True, True, False):
+        t0 = time.perf_counter()
+        decode_flac_range(blob, *span, verify_crc=crc)
+        times[crc].append((time.perf_counter() - t0) * 1e3)
+    log(f"rows' CRC-16 check: decode_flac_range ms in turns without {times[False]}, with "
+        f"{times[True]} | {card}")
 
 
 # phase 19's two processes: tiles, samples a tile, blocksize, level
@@ -1580,6 +1424,15 @@ def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
         f"({t_loop / dt:.2f}x); every tile equal to decode_flac_device's and to the source, "
         f"tile 0 alone on the host route | {card}")
     del got, ref
+    # the CRC-16 check decode_bbox_device makes: the batch of every tile
+    # with and without it, in turns
+    times = {False: [], True: []}
+    for crc in (False, True, True, False):
+        _, t, _ = run_path("the batch decode", lambda: decode_flac_batch_mesh(
+            blobs, verify_crc=crc, mesh=one), DECODE_KERNELS["full"])
+        times[crc].append(round(t * 1e3, 1))
+    log(f"batch decode's CRC-16 check, all {len(blobs)} tiles: ms in turns without "
+        f"{times[False]}, with {times[True]} | {card}")
 
     launches = {}
     for label, bbox in (("4x4-tile bbox", tile_box(2, 3, 4, 4)), ("whole raster", WHOLE_RASTER)):
@@ -1640,6 +1493,123 @@ def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
         f"{[o['slice'] for o in outs]}, sizes and offsets agree, the assembled container "
         f"({len(single)} bytes) equal to one process's, each slice decoded on the device route "
         f"and equal to its tiles; {t_mh:.1f} s with the processes' start-up | {card}")
+
+
+# the kernels' __global__ names, as a CUDA trace shows them
+TRACE_KERNELS = {"rice_cost_sums": "rice_cost_kernel", "pack_tokens": "pack_tokens_kernel",
+                 "pack_tokens_v5": "pack_v5_kernel"}
+
+
+def read_trace(path: Path, wall: float) -> dict:
+    """A Chrome trace's device kernels by name, its frtt.stage.* ranges and
+    the host time of its frtt.* ranges, and the busy share: the device time
+    of kernels and copies over ``wall`` seconds."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    kernels: dict = {}
+    busy_us = 0.0
+    ranges: dict = {}
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "kernel":
+            kernels[name] = kernels.get(name, 0) + 1
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy_us += e.get("dur", 0)
+        if cat == "user_annotation" and name.startswith("frtt."):
+            ms, n = ranges.get(name, (0.0, 0))
+            ranges[name] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    return {"kernels": kernels, "ranges": ranges, "busy": busy_us / 1e6 / wall}
+
+
+def cli_phase(band: np.ndarray, work: Path, card: str, dev) -> None:
+    """Phase 20: the command line on the card through ``cli.main``, in
+    process, each command timed with launch counts; the stage timers' report
+    (``-v``) and the traces' frtt.* host ranges logged."""
+    import logging
+
+    from flac_raster_tpu_torch import Affine, SpatialFLACStreamer, cli
+    from flac_raster_tpu_torch.io.geotiff import open_geotiff, write_geotiff
+
+    out = work / "cli"
+    out.mkdir()
+
+    class Relay(logging.Handler):      # the stage timers' report, on stdout
+        def emit(self, record):
+            log(f"  [{record.name}] {record.getMessage()}")
+
+    relay = Relay(logging.DEBUG)
+    profiling_log = logging.getLogger("flac_raster_tpu_torch.profiling")
+    profiling_log.addHandler(relay)
+    profiling_log.propagate = False
+
+    def command(label: str, argv: list, need=()) -> float:
+        rc, dt, launches = run_path(f"cli {label}", lambda: cli.main([*argv, "--device", dev.type]),
+                                    need)
+        if rc != 0:
+            raise AssertionError(f"cli {label} exited {rc}")
+        log(f"cli {label}: {dt:.3f} s wall, launches {launches} | {card}")
+        return dt
+
+    def traced(label: str, argv: list, trace_dir: Path, need) -> dict:
+        dt = command(label, [*argv, "--trace", str(trace_dir)], need)
+        (path,) = trace_dir.glob("*.json")
+        got = read_trace(path, dt)
+        log(f"  trace of {label}: {sum(got['kernels'].values())} kernel launches, busy "
+            f"{100 * got['busy']:.1f}% of the wall; host ranges (ms, count): " + ", ".join(
+                f"{k} {ms:.1f} x{n}" for k, (ms, n) in sorted(got["ranges"].items())))
+        return got
+
+    try:
+        tif, flac = work / "band.tif", out / "band.flac"
+        got = traced("convert --trace -v", ["convert", str(tif), "-o", str(flac), "-c",
+                                            str(LEVEL), "-v"], out / "trace", encode_kernels())
+        missing = [k for k, g in TRACE_KERNELS.items()
+                   if not any(g in name for name in got["kernels"])]
+        stages = [k for k in got["ranges"] if k.startswith("frtt.stage.")]
+        if missing or not stages:
+            raise AssertionError(f"the convert trace lacks kernels {missing} or stages {stages}")
+        command("info", ["info", str(flac)])
+        rows_tif = out / "rows.tif"
+        command("extract --rows", ["extract", str(flac), "-o", str(rows_tif), "--rows",
+                                   f"{ROWS[0]}:{ROWS[1]}"])
+        with open_geotiff(rows_tif) as src:
+            if not np.array_equal(src.read(), band[None, ROWS[0] : sum(ROWS)]):
+                raise AssertionError("cli extract --rows differs from the band's rows")
+        sflac, ranges_json = work / "band.spatial.flac", out / "ranges.json"
+        box = tile_box(2, 3, 4, 4)
+        command("query", ["query", str(sflac), "-b", ",".join(map(repr, box)), "-o",
+                          str(ranges_json)])
+        want = SpatialFLACStreamer(sflac, device=dev).get_byte_ranges_for_bbox(box)
+        if [(r["start"], r["end"]) for r in json.loads(ranges_json.read_text())["ranges"]] != want:
+            raise AssertionError("cli query's ranges differ from the streamer's")
+        back, cmp_json = out / "back.tif", out / "compare.json"
+        command("convert to TIFF -v", ["convert", str(flac), "-o", str(back), "-v"])
+        command("compare", ["compare", str(tif), str(back), "-e", str(cmp_json)])
+        if json.loads(cmp_json.read_text())["arrays_equal"] is not True:
+            raise AssertionError("cli compare: the round trip's arrays differ")
+        log(f"cli: extract, query and compare agree with the band and the streamer | {card}")
+
+        # the stages the main path bypasses: the minmax normalization, the
+        # wide planner (a DEM written with DEFLATE), the tiled encode
+        command("convert --minmax -v", ["convert", str(tif), "-o", str(out / "minmax.flac"),
+                                        "--minmax", "-v"], encode_kernels())
+        dem_tif = out / "dem.tif"
+        level = profiling_log.level
+        profiling_log.setLevel(logging.DEBUG)     # write_geotiff's stage at DEBUG
+        write_geotiff(dem_tif, make_dem(DEM_SIZE)[None], crs=BAND_CRS,
+                      transform=Affine.from_origin(*BAND_ORIGIN), compress="deflate",
+                      tiled=True, tile_size=SPATIAL_TILE)
+        profiling_log.setLevel(level)
+        traced("convert DEM -v", ["convert", str(dem_tif), "-o", str(out / "dem.flac"), "-v"],
+               out / "trace_dem", encode_kernels(wide=True))
+        traced("convert --spatial -v", ["convert", str(tif), "-o", str(out / "spatial.flac"),
+                                        "--spatial", "-t", str(SPATIAL_TILE), "-v"],
+               out / "trace_spatial", encode_kernels())
+    finally:
+        profiling_log.removeHandler(relay)
+        profiling_log.propagate = True
+        # -v set the root logger to DEBUG (logging.basicConfig)
+        logging.getLogger().setLevel(logging.WARNING)
+        logging.getLogger("flac_raster_tpu_torch").setLevel(logging.NOTSET)
 
 
 def main() -> int:
@@ -1805,7 +1775,19 @@ def run(work: Path, t_start: float) -> int:
     del scene
     log("phase 19: the tile engines: batch decode, grid encode, two processes")
     tile_engines_phase(band, work, card, dev)
+    torch.cuda.empty_cache()
+    log("phase 20: the command line on the card (cli.main)")
+    cli_phase(band, work, card, dev)
     del band
+    torch.cuda.empty_cache()
+
+    log("phase 21: the selftest (flac_raster_tpu_torch.utils.selftest) on the card")
+    from flac_raster_tpu_torch.utils import selftest
+
+    t0 = time.perf_counter()
+    if selftest.main(["--device", "cuda"]) != 0:
+        raise AssertionError("the selftest failed")
+    log(f"selftest: every check OK, {time.perf_counter() - t0:.1f} s | {card}")
 
     for k in kernels:
         k["launches"] = TOTAL_LAUNCHES.get(k["name"], 0)

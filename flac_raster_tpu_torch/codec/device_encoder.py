@@ -10,8 +10,11 @@ word buffer is copied back to pinned host memory.  The host byteswaps it
 to big-endian, patches every frame's CRC-8/CRC-16 with the native C pass,
 and writes STREAMINFO and the FRTP v2 layout block.  A partial last frame
 is encoded on the host (``codec/host_encoder.emit_tail_frame``), and so is
-a stream shorter than one block (``host_encoder.encode_flac``), byte for
-byte as the JAX package does.
+a stream shorter than one block (``encoder.encode_flac``), byte for
+byte as the JAX package does.  A blocksize that is not a power of two, or
+is below 64, does not fit the device's frame layout: such a stream takes
+the same host encoder whole, as the JAX device encoder sends it to its
+scalar encoder; the route is logged at INFO.
 
 Rows may also arrive as a tensor already on the device (``converter.
 encode_array_device``): the chunks are then slices of it, and only the rows
@@ -30,6 +33,7 @@ out, one chunk after another.  Overlapping those stages is later work.
 from __future__ import annotations
 
 import contextlib
+import logging
 
 import numpy as np
 import torch
@@ -41,10 +45,18 @@ from ..ops.device_emit import plan_and_emit, worst_case_words
 from ..ops.stereo import midside_ok
 from . import host_encoder
 from .decoder import md5_of_samples
-from .encoder import _BPS_CODES, _SAMPLE_RATE_CODES, EncoderConfig, _blocksize_header
+from .encoder import (
+    _BPS_CODES,
+    _SAMPLE_RATE_CODES,
+    EncoderConfig,
+    _blocksize_header,
+    encode_flac,
+)
 
 __all__ = ["encode_flac_device", "encode_flac_batch_device", "encode_batch_shards",
-           "resolve_device", "device_scope", "np_dtype", "to_host", "as_int64"]
+           "device_blocksize", "resolve_device", "device_scope", "np_dtype", "to_host", "as_int64"]
+
+logger = logging.getLogger("flac_raster_tpu_torch.device_encoder")
 
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
 PLAN_CHUNK_FRAMES = 2048   # frames a chunk of the encoder's loop, by default
@@ -117,18 +129,34 @@ def _patch_crcs(buf: np.ndarray, frame_bits: np.ndarray, hdr_bits: np.ndarray) -
     native.crc16_patch(buf, frame_start, (frame_bits >> 3) - 2)
 
 
-def _check_stream(channels: int, bits_per_sample: int, dtype, blocksize: int) -> None:
+def _check_stream(channels: int, bits_per_sample: int, dtype) -> None:
     if not 1 <= channels <= 8:
         raise ValueError("FLAC supports 1..8 channels")
     if bits_per_sample not in _BPS_CODES:
         raise ValueError(f"unsupported bits_per_sample {bits_per_sample}")
     if not np.issubdtype(dtype, np.integer):
         raise ValueError(f"samples must be integers, not {dtype}")
-    if (blocksize & (blocksize - 1)) != 0 or blocksize % 64 != 0:
-        raise NotImplementedError(
-            f"blocksize {blocksize} needs the host encoder, which is not ported "
-            "yet (ROADMAP Queue 1 item 12)"
-        )
+
+
+def device_blocksize(blocksize: int) -> bool:
+    """Whether the device's frame layout takes ``blocksize``: a power of two
+    of at least 64 (the JAX device encoder's condition)."""
+    return blocksize >= 64 and (blocksize & (blocksize - 1)) == 0
+
+
+def _host_encode(samples, on_device: bool, sample_rate: int, bits_per_sample: int,
+                 compression_level: int, blocksize: int, comments, vendor: str,
+                 compute_md5: bool, padding: int, zero_point: int) -> bytes:
+    """The whole stream through the scalar host encoder (``encoder.
+    encode_flac``, the JAX ``codec/encoder.encode_flac``): a stream shorter
+    than one block, or a blocksize the device's frame layout does not take."""
+    if len(samples) >= blocksize:
+        logger.info("encode takes the host route: blocksize %d is not a power of two of at "
+                    "least 64 (codec/encoder.encode_flac)%s", blocksize,
+                    "; the device tensor is pulled to the host" if on_device else "")
+    pcm = (to_host(samples) if on_device else samples).astype(np.int64) - zero_point
+    return encode_flac(pcm, sample_rate, bits_per_sample, compression_level, blocksize,
+                       comments, vendor, compute_md5, padding)
 
 
 def _check_range(samples, dtype, bits_per_sample: int, zero_point: int) -> None:
@@ -239,9 +267,10 @@ def _assemble_stream(frames: bytes, sizes: np.ndarray, subs: np.ndarray, tail, n
     one): the tail frame is encoded on the host; STREAMINFO and the FRTP v2
     layout block head the stream."""
     if tail is not None:
-        tail_bytes = host_encoder.emit_tail_frame(
-            tail, len(sizes), bits_per_sample, _SAMPLE_RATE_CODES.get(sample_rate, 0),
-            _BPS_CODES[bits_per_sample], cfg)
+        with record_function("frtt.host_tail"):    # the partial frame, on the host
+            tail_bytes = host_encoder.emit_tail_frame(
+                tail, len(sizes), bits_per_sample, _SAMPLE_RATE_CODES.get(sample_rate, 0),
+                _BPS_CODES[bits_per_sample], cfg)
         frames += tail_bytes
         sizes = np.append(sizes, len(tail_bytes))
         subs = np.concatenate([subs, np.zeros((1, channels - 1), np.int64)])  # no layout entry
@@ -300,9 +329,11 @@ def encode_flac_device(
     (``ops/wide_codec``); bits_per_sample is one of FLAC's widths here
     (8, 12, 16, 20, 24, 32).
 
+    A blocksize that is not a power of two, or is below 64, takes the
+    scalar host encoder for the whole stream (logged at INFO), as in the
+    JAX package.
+
     Raises:
-        NotImplementedError: for a blocksize that is not a power of two,
-            which the port does not cover yet.
         RuntimeError: when the sample stream broke the pack kernel's
             precondition (the chunk's words would be wrong).
     """
@@ -318,19 +349,15 @@ def encode_flac_device(
     if samples.ndim == 1:
         samples = samples[:, None]
     n, channels = samples.shape
-    _check_stream(channels, bits_per_sample, dtype, blocksize)
+    _check_stream(channels, bits_per_sample, dtype)
     cfg = EncoderConfig.from_level(compression_level)
     n_full = n // blocksize
-    if n_full == 0:
-        # one short frame: the scalar host encoder, as the JAX package
-        pcm = (to_host(samples) if on_device else samples).astype(np.int64) - zero_point
-        if n:
-            _check_range(pcm, pcm.dtype, bits_per_sample, 0)
-        return host_encoder.encode_flac(
-            pcm, sample_rate, bits_per_sample, compression_level, blocksize, comments,
-            vendor, compute_md5, padding, _SAMPLE_RATE_CODES.get(sample_rate, 0),
-            _BPS_CODES[bits_per_sample],
-        )
+    if n_full == 0 or not device_blocksize(blocksize):
+        # one short frame, or frames the device layout does not take: the
+        # scalar host encoder, as the JAX package
+        return _host_encode(samples, on_device, sample_rate, bits_per_sample,
+                            compression_level, blocksize, comments, vendor, compute_md5,
+                            padding, zero_point)
     _check_range(samples, dtype, bits_per_sample, zero_point)
     if not on_device:
         samples = np.ascontiguousarray(samples)
@@ -350,8 +377,9 @@ def encode_flac_device(
         tail = (to_host(tail) if on_device else tail).astype(np.int64) - zero_point
     md5 = b"\x00" * 16
     if compute_md5:
-        pcm = to_host(samples) if on_device else samples
-        md5 = md5_of_samples(pcm.astype(np.int64) - zero_point, bits_per_sample)
+        with record_function("frtt.md5"):
+            pcm = to_host(samples) if on_device else samples
+            md5 = md5_of_samples(pcm.astype(np.int64) - zero_point, bits_per_sample)
     return _assemble_stream(frames, sizes, subs, tail, n, channels, sample_rate,
                             bits_per_sample, blocksize, cfg, md5, comments, vendor, padding)
 
@@ -380,7 +408,9 @@ def encode_flac_batch_device(
     size.  Each stream's partial tail frame is encoded on the host.  A batch
     with no full frame goes through ``encode_flac_device`` stream by
     stream, as the JAX branch does.  Stream t equals ``encode_flac_device``
-    of ``samples_batch[t]`` with ``comments_list[t]``.
+    of ``samples_batch[t]`` with ``comments_list[t]``.  A blocksize the
+    device's frame layout does not take goes stream by stream too, each on
+    the host route.
 
     Returns the T FLAC streams.
     """
@@ -394,7 +424,7 @@ def encode_flac_batch_device(
     kw = dict(compression_level=compression_level, blocksize=blocksize, vendor=vendor,
               compute_md5=compute_md5, plan_chunk_frames=plan_chunk_frames,
               zero_point=zero_point, device=device)
-    if T == 0 or n_full == 0:
+    if T == 0 or n_full == 0 or not device_blocksize(blocksize):
         return [encode_flac_device(samples_batch[t], sample_rate, bits_per_sample,
                                    comments=comments_list[t], **kw) for t in range(T)]
     dev = resolve_device(device)
@@ -417,7 +447,7 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
     on one device, ``parallel.tile_engine.encode_flac_batch_mesh`` one a
     grid cell.  Returns the T FLAC streams."""
     T, n, channels = samples_batch.shape
-    _check_stream(channels, bits_per_sample, samples_batch.dtype, blocksize)
+    _check_stream(channels, bits_per_sample, samples_batch.dtype)
     _check_range(samples_batch, samples_batch.dtype, bits_per_sample, zero_point)
     cfg = EncoderConfig.from_level(compression_level)
     n_full = n // blocksize
@@ -440,6 +470,8 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
         for k, t in enumerate(range(tiles.start, tiles.stop)):
             f0, f1 = k * nf, (k + 1) * nf
             pieces[t].append((body[ends[f0] : ends[f1]], sizes[f0:f1], subs[f0:f1]))
+    # the host's share of a tiled encode: each tile's MD5, then its tail
+    # frame and header (frtt.host_tail inside)
     out = []
     for t in range(T):
         frames_t, sizes_t, subs_t = zip(*pieces[t])
@@ -448,9 +480,12 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
             tail = samples_batch[t, n_full * blocksize :].astype(np.int64) - zero_point
         md5 = b"\x00" * 16
         if compute_md5:
-            md5 = md5_of_samples(samples_batch[t].astype(np.int64) - zero_point, bits_per_sample)
-        out.append(_assemble_stream(
-            b"".join(frames_t), np.concatenate(sizes_t), np.concatenate(subs_t), tail, n,
-            channels, sample_rate, bits_per_sample, blocksize, cfg, md5, comments_list[t],
-            vendor, 0))
+            with record_function("frtt.tile_md5"):
+                md5 = md5_of_samples(samples_batch[t].astype(np.int64) - zero_point,
+                                     bits_per_sample)
+        with record_function("frtt.tile_header"):
+            out.append(_assemble_stream(
+                b"".join(frames_t), np.concatenate(sizes_t), np.concatenate(subs_t), tail, n,
+                channels, sample_rate, bits_per_sample, blocksize, cfg, md5, comments_list[t],
+                vendor, 0))
     return out

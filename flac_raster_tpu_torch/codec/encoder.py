@@ -1,16 +1,21 @@
-"""FLAC encoder presets and header code tables.
+"""FLAC encoder presets, header code tables and the whole-stream host
+encoder's entry point.
 
 The port of the preset table of ``flac_raster_tpu.codec.encoder`` and of
 ``fast_encoder._blocksize_header``.  Level 5 is the main path: fixed
 orders 0-4, one tukey(0.5) LPC candidate of order <= 8, Rice partition
-orders up to 6, blocksize 4096.
+orders up to 6, blocksize 4096.  ``encode_flac`` has the signature of the
+JAX ``codec/encoder.encode_flac`` (``:363-373``) and writes its bytes.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+
 __all__ = [
+    "encode_flac",
     "EncoderConfig",
     "_BLOCKSIZE_CODES",
     "_SAMPLE_RATE_CODES",
@@ -65,3 +70,40 @@ def _blocksize_header(blocksize: int) -> tuple[int, int, int]:
     if blocksize <= 256:
         return 6, blocksize - 1, 8
     return 7, blocksize - 1, 16
+
+
+def encode_flac(
+    samples: np.ndarray,
+    sample_rate: int,
+    bits_per_sample: int,
+    compression_level: int = 5,
+    blocksize: int = 4096,
+    comments: dict[str, str] | None = None,
+    vendor: str = "flac-raster-tpu",
+    compute_md5: bool = True,
+    padding: int = 0,
+) -> bytes:
+    """Encode int samples (n,) or (n, channels) into a complete FLAC stream
+    on the host, every frame by the scalar encoder
+    (``codec/host_encoder.encode_flac``): the bytes of the JAX
+    ``codec/encoder.encode_flac`` for the same arguments.  Any blocksize;
+    the device encoder routes streams shorter than one block, and
+    blocksizes its frame layout does not take, here."""
+    # host_encoder imports this module's tables
+    from .host_encoder import encode_flac as encode_frames
+
+    samples = np.asarray(samples)
+    if samples.ndim == 1:
+        samples = samples[:, None]
+    channels = samples.shape[1]
+    if not 1 <= channels <= 8:
+        raise ValueError("FLAC supports 1..8 channels")
+    if bits_per_sample not in _BPS_CODES:
+        raise ValueError(f"unsupported bits_per_sample {bits_per_sample}")
+    smp = samples.astype(np.int64, copy=False)
+    lo, hi = -(1 << (bits_per_sample - 1)), (1 << (bits_per_sample - 1)) - 1
+    if smp.size and (smp.min() < lo or smp.max() > hi):
+        raise ValueError("samples exceed bits_per_sample range")
+    return encode_frames(smp, sample_rate, bits_per_sample, compression_level, blocksize,
+                         comments, vendor, compute_md5, padding,
+                         _SAMPLE_RATE_CODES.get(sample_rate, 0), _BPS_CODES[bits_per_sample])

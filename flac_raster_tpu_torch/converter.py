@@ -74,6 +74,7 @@ from .ops.normalization import (
     normalize_lossless,
     normalize_to_audio,
 )
+from .utils.profiling import StageTimer
 
 logger = logging.getLogger("flac_raster_tpu_torch.converter")
 
@@ -130,6 +131,18 @@ class RasterFLACConverter:
         self.compute_md5 = compute_md5
         self.device = resolve_device(device)
 
+    def _timer(self) -> StageTimer:
+        """A StageTimer that runs while this module's logger is at DEBUG (the
+        CLI's ``-v``); it synchronizes the converter's device at the end of
+        each stage, so stages that end on device work cover it."""
+        return StageTimer(enabled=logger.isEnabledFor(logging.DEBUG), device=self.device)
+
+    def _normalize_stage(self, dt) -> str:
+        """The stage name of ``_samples``' host work for a dtype."""
+        if not self.lossless:
+            return "normalize_minmax"   # the float64 min-max scaling
+        return "stats" if np.dtype(dt) in _SHIFT_SPECS else "normalize_lossless"
+
     def tiff_to_flac(self, tiff_path, flac_path, compression_level: int = 5,
                      spatial_tiling: bool = False, tile_size: int = 512):
         """Convert a GeoTIFF to a FLAC file.  With ``spatial_tiling``, write
@@ -142,11 +155,16 @@ class RasterFLACConverter:
             encoder = SpatialFLACEncoder(tile_size=tile_size, lossless=self.lossless,
                                          device=self.device)
             return encoder.encode_spatial_flac(tiff_path, flac_path, compression_level)
-        with open_geotiff(tiff_path) as src:
-            data, meta, bounds, transform = src.read(), src.meta, src.bounds, src.transform
-        blob = self.encode_array(data, crs=meta["crs"], transform=transform, bounds=bounds,
-                                 nodata=meta["nodata"], compression_level=compression_level)
-        flac_path.write_bytes(blob)
+        timer = self._timer()
+        with timer.stage("read_geotiff"):
+            with open_geotiff(tiff_path) as src:
+                data, meta, bounds, transform = src.read(), src.meta, src.bounds, src.transform
+        with timer.stage("encode_array", data.nbytes):
+            blob = self.encode_array(data, crs=meta["crs"], transform=transform, bounds=bounds,
+                                     nodata=meta["nodata"], compression_level=compression_level)
+        with timer.stage("write_flac", len(blob)):
+            flac_path.write_bytes(blob)
+        timer.report(logging.DEBUG)
         logger.info("converted %s (%d bytes) -> %s (%d bytes)", tiff_path,
                     tiff_path.stat().st_size, flac_path, len(blob))
         return None
@@ -155,11 +173,15 @@ class RasterFLACConverter:
         """Convert a FLAC file (of either package or the reference system,
         metadata in its comments or its ``.json`` sidecar) to a GeoTIFF."""
         flac_path, tiff_path = Path(flac_path), Path(tiff_path)
-        data, meta = self.decode_bytes(flac_path.read_bytes(),
-                                       sidecar_path=flac_path.with_suffix(".json"))
+        timer = self._timer()
+        with timer.stage("decode_bytes"):
+            data, meta = self.decode_bytes(flac_path.read_bytes(),
+                                           sidecar_path=flac_path.with_suffix(".json"))
         t = meta.get("transform")
-        write_geotiff(tiff_path, data, crs=meta.get("crs") or None,
-                      transform=Affine(*t[:6]) if t else None, nodata=meta.get("nodata"))
+        with timer.stage("write_geotiff", data.nbytes):
+            write_geotiff(tiff_path, data, crs=meta.get("crs") or None,
+                          transform=Affine(*t[:6]) if t else None, nodata=meta.get("nodata"))
+        timer.report(logging.DEBUG)
         logger.info("converted %s -> %s %s", flac_path, tiff_path, data.shape)
 
     def encode_array(
@@ -190,14 +212,20 @@ class RasterFLACConverter:
         if data.ndim == 2:
             data = data[None]
         count, height, width = data.shape
-        samples, sample_rate, bps, zero, params = self._samples(data)
+        timer = self._timer()
+        with timer.stage(self._normalize_stage(data.dtype), data.nbytes):
+            samples, sample_rate, bps, zero, params = self._samples(data)
         comments = self._comments(samples.shape[1], params, count, height, width, data.dtype,
                                   crs, transform, bounds, nodata, extra_comments)
-        return encode_flac_device(
-            samples, sample_rate, bps,
-            compression_level=compression_level, comments=comments,
-            compute_md5=compute_md5, zero_point=zero, device=self.device,
-        )
+        # the chunk loop's own stages are frtt.* ranges (codec/device_encoder)
+        with timer.stage("encode", data.nbytes):
+            blob = encode_flac_device(
+                samples, sample_rate, bps,
+                compression_level=compression_level, comments=comments,
+                compute_md5=compute_md5, zero_point=zero, device=self.device,
+            )
+        timer.report(logging.DEBUG)
+        return blob
 
     def _samples(self, data: np.ndarray):
         """(sample rows, sample rate, bits per sample, zero point,
@@ -249,19 +277,27 @@ class RasterFLACConverter:
         if T == 0:
             return []
         batch, comments_list = [], []
-        for t in range(T):
-            samples, sample_rate, bps, zero, params = self._samples(tiles[t])
-            comments_list.append(self._comments(
-                samples.shape[1], params, count, height, width, tiles.dtype, crs,
-                transforms[t] if transforms is not None else None,
-                bounds_list[t] if bounds_list is not None else None, nodata,
-                extra_comments_list[t] if extra_comments_list is not None else None))
-            batch.append(samples)
-        return encode_flac_batch_device(
-            np.stack(batch), sample_rate, bps, compression_level=compression_level,
-            comments_list=comments_list, compute_md5=self.compute_md5, zero_point=zero,
-            device=self.device,
-        )
+        timer = self._timer()
+        with timer.stage(f"tiles_{self._normalize_stage(tiles.dtype)}", tiles.nbytes):
+            for t in range(T):
+                samples, sample_rate, bps, zero, params = self._samples(tiles[t])
+                comments_list.append(self._comments(
+                    samples.shape[1], params, count, height, width, tiles.dtype, crs,
+                    transforms[t] if transforms is not None else None,
+                    bounds_list[t] if bounds_list is not None else None, nodata,
+                    extra_comments_list[t] if extra_comments_list is not None else None))
+                batch.append(samples)
+            batch = np.stack(batch)
+        # the chunk loop and the per-tile MD5 and header are frtt.* ranges
+        # (codec/device_encoder.encode_batch_shards)
+        with timer.stage("tiles_encode", tiles.nbytes):
+            blobs = encode_flac_batch_device(
+                batch, sample_rate, bps, compression_level=compression_level,
+                comments_list=comments_list, compute_md5=self.compute_md5, zero_point=zero,
+                device=self.device,
+            )
+        timer.report(logging.DEBUG)
+        return blobs
 
     @staticmethod
     def _comments(channels, params, count, height, width, dt, crs, transform, bounds, nodata,
@@ -321,6 +357,7 @@ class RasterFLACConverter:
         count, height, width = data.shape
         dt = np_dtype(data)
         is_f32 = dt == np.float32
+        timer = self._timer()
         if not (self.lossless and (dt in _SHIFT_SPECS or is_f32)):
             # float64 splits into hi and lo on the host, as the JAX package
             # does, and the minmax mode normalizes there
@@ -331,35 +368,39 @@ class RasterFLACConverter:
                 nodata=nodata, compression_level=compression_level,
                 extra_comments=extra_comments)
 
-        if is_f32:
-            bps, zero, mode = 32, 0, MODE_FLOAT32_BITS
-            # the statistics before the fold, NaN-aware
-            nan = torch.isnan(data)
-            stats = torch.stack([data.masked_fill(nan, float("inf")).amin(),
-                                 data.masked_fill(nan, float("-inf")).amax()]).tolist()
-            if bool(nan.all()):
-                stats = [float("nan")] * 2
-            del nan
-            bits = data.view(torch.int32)
-            data = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-        else:
-            (bps, zero), mode = _SHIFT_SPECS[dt], MODE_SHIFT
-            vals = as_int64(data)
-            stats = [float(v) for v in torch.stack([vals.amin(), vals.amax()]).tolist()]
-            del vals
+        nbytes = data.numel() * data.element_size()
+        with timer.stage("device_stats", nbytes):    # ends on a two-scalar pull
+            if is_f32:
+                bps, zero, mode = 32, 0, MODE_FLOAT32_BITS
+                # the statistics before the fold, NaN-aware
+                nan = torch.isnan(data)
+                stats = torch.stack([data.masked_fill(nan, float("inf")).amin(),
+                                     data.masked_fill(nan, float("-inf")).amax()]).tolist()
+                if bool(nan.all()):
+                    stats = [float("nan")] * 2
+                del nan
+                bits = data.view(torch.int32)
+                data = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+            else:
+                (bps, zero), mode = _SHIFT_SPECS[dt], MODE_SHIFT
+                vals = as_int64(data)
+                stats = [float(v) for v in torch.stack([vals.amin(), vals.amax()]).tolist()]
+                del vals
         params = NormalizationParams(
             data_min=stats[0], data_max=stats[1], original_dtype=str(dt),
             bits_per_sample=bps, scale_factor=1, mode=mode, zero_point=zero,
         )
         signed = _SIGNED_VIEWS.get(data.dtype)
-        rows = (data if signed is None else data.view(signed)).permute(1, 2, 0)
-        rows = rows.reshape(height * width, count)
-        if signed is not None:
-            rows = rows.view(data.dtype)
+        with timer.stage("device_interleave", nbytes):   # the timer syncs the device
+            rows = (data if signed is None else data.view(signed)).permute(1, 2, 0)
+            rows = rows.reshape(height * width, count)
+            if signed is not None:
+                rows = rows.view(data.dtype)
         comments = self._comments(count, params, count, height, width, dt, crs, transform,
                                   bounds, nodata, extra_comments)
         sample_rate, _ = calculate_audio_params(data, dt)
-        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="frtt-md5") as pool:
+        with (timer.stage("encode", nbytes),
+              ThreadPoolExecutor(max_workers=1, thread_name_prefix="frtt-md5") as pool):
             md5 = pool.submit(_md5_of_rows, rows, zero, bps) if compute_md5 else None
             blob = encode_flac_device(
                 rows, sample_rate, bps, compression_level=compression_level,
@@ -367,6 +408,7 @@ class RasterFLACConverter:
             )
             if md5 is not None:
                 blob = blob[: _MD5_FIELD.start] + md5.result() + blob[_MD5_FIELD.stop :]
+        timer.report(logging.DEBUG)
         return blob
 
     @staticmethod
@@ -476,12 +518,13 @@ class RasterFLACConverter:
         """Decode raster rows [row0, row0 + n_rows) of a FLAC blob on the
         host: the rows are the sample span [row0 * width, (row0 + n_rows) *
         width), and only the frames covering it are parsed
-        (``decode_flac_range``).  Returns ((bands, n_rows, width) array,
+        (``decode_flac_range``), each with its CRC-16 checked (a corrupt
+        frame raises ValueError).  Returns ((bands, n_rows, width) array,
         metadata).  ``decode_flac_device(sample_range=...)`` is its
         counterpart on the card."""
         meta = self._rows_meta(parse_flac_metadata(bytes(blob))[1], sidecar_path, row0, n_rows)
         width = meta["width"]
-        decoded = decode_flac_range(blob, row0 * width, n_rows * width, verify_crc=False)
+        decoded = decode_flac_range(blob, row0 * width, n_rows * width, verify_crc=True)
         return _band_major(self._denormalize_samples(decoded, meta), width, n_rows), meta
 
     # the first fetch of decode_rows_ranged's header prefix; it grows four
@@ -497,8 +540,8 @@ class RasterFLACConverter:
 
         Fetches a header prefix, growing until the metadata parses, then
         only the frame span covering the rows, located through the FRTP
-        layout index.  A stream without a usable index is fetched whole and
-        goes through ``decode_rows``.  Returns (data, meta, bytes fetched).
+        layout index; their CRC-16s are checked.  A stream without a usable
+        index is fetched whole and goes through ``decode_rows``.  Returns (data, meta, bytes fetched).
         """
         size = source.file_size
         want = min(self._HEADER_PREFETCH, size or self._HEADER_PREFETCH)
@@ -542,7 +585,7 @@ class RasterFLACConverter:
             span = source.read_range(lo_byte, hi_byte - 1)
             fetched += hi_byte - lo_byte
         dec = DecodedStream(decode_frame_span(span, si, f0, f1, start_sample, num_samples,
-                                              verify_crc=False), si, {})
+                                              verify_crc=True), si, {})
         return _band_major(self._denormalize_samples(dec, meta), width, n_rows), meta, fetched
 
 

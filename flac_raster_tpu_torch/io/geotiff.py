@@ -33,6 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from .geo import Affine, BoundingBox, Window, bounds_of, crs_to_epsg
+from ..utils.profiling import timed_stage
 
 __all__ = [
     "GeoTiffReader",
@@ -1024,7 +1025,10 @@ def write_geotiff(
 
     per_image: list[tuple[list, list]] = []
     for level, img in enumerate(images):
-        chunks, rps = build_chunks(img)
+        # the chunks' layout and compression: a stage of its own (DEBUG log,
+        # frtt.stage.* range in a trace)
+        with timed_stage(f"write_geotiff.{compress or 'none'}", img.nbytes):
+            chunks, rps = build_chunks(img)
         per_image.append((build_entries(img, level, chunks, rps), chunks))
 
     # ---- layout: header | [IFD_i + externals_i]* | chunk data ----

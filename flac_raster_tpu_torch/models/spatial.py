@@ -413,6 +413,8 @@ class SpatialFLACStreamer:
 
         The tiles decode in one batch (``parallel.decode_flac_batch_mesh``
         on the streamer's device); each tile's inverse follows.
+        Every frame's CRC-16 is checked, as ``decode_bbox`` checks it: a
+        corrupt tile raises ValueError.
         ``self.last_routes`` then holds each tile's route in the same order
         (tile 0 of a spatial file takes ``decode_flac_device``'s host route:
         its header holds no layout index).
@@ -421,7 +423,9 @@ class SpatialFLACStreamer:
 
         conv = RasterFLACConverter(device=self.device)
         frames, blobs = self._tiles(bbox)
-        decoded = decode_flac_batch_mesh(blobs, verify_crc=False,
+        # every frame's CRC-16 is checked (one native pass over the batch),
+        # as decode_bbox checks it: a corrupt range read raises ValueError
+        decoded = decode_flac_batch_mesh(blobs, verify_crc=True,
                                          mesh=tile_mesh(devices=[self.device]))
         out = []
         for f, dec in zip(frames, decoded):

@@ -33,6 +33,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .bits import wrap32
 from .device_codec import (
@@ -415,9 +416,11 @@ def plan_and_emit(
     chan_code = ch_bps = None
     if mid_side:
         plan, x, chan_code, ch_bps = _plan_mid_side(x, bps, **plan_kw)
+    elif bps > MAX_DEVICE_BPS:
+        with record_function("frtt.plan_wide"):    # the wide planner, plain int64
+            plan = plan_blocks_wide(x.reshape(F * C, N), bps=bps, **plan_kw)
     else:
-        planner = plan_blocks_wide if bps > MAX_DEVICE_BPS else plan_blocks
-        plan = planner(x.reshape(F * C, N), bps=bps, **plan_kw)
+        plan = plan_blocks(x.reshape(F * C, N), bps=bps, **plan_kw)
     return emit_plan(
         x, plan, frame_numbers, n_words=n_words, chan_code=chan_code, ch_bps=ch_bps,
         blocksize=blocksize, bps=bps, sr_code=sr_code, bps_code=bps_code,

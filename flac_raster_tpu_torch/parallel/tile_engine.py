@@ -29,6 +29,7 @@ import torch
 
 from ..codec.device_encoder import (
     PLAN_CHUNK_FRAMES,
+    device_blocksize,
     device_scope,
     encode_batch_shards,
     encode_flac_batch_device,
@@ -142,10 +143,11 @@ def encode_flac_batch_mesh(
     the JAX ``encode_flac_batch_mesh``'s.  ``zero_point`` is the lossless
     shift subtracted on the device, as in ``encode_flac_batch_device``.
 
-    A batch with no stream (T == 0) or no full frame encodes stream by
-    stream through ``encode_flac_batch_device`` (logged at INFO); a bit
-    depth that FLAC has no code for raises ValueError, and a blocksize that
-    is not a power of two NotImplementedError (ROADMAP Queue 1 item 12).
+    A batch with no stream (T == 0), no full frame, or a blocksize that is
+    not a power of two of at least 64 encodes stream by stream through
+    ``encode_flac_batch_device`` (logged at INFO; the last takes the scalar
+    host encoder, as the JAX batch encoder does); a bit depth that FLAC has
+    no code for raises ValueError.
     """
     if mesh is None:
         mesh = tile_mesh()
@@ -156,9 +158,9 @@ def encode_flac_batch_mesh(
     if comments_list is None:
         comments_list = [None] * T
     n_full = n // blocksize
-    if T == 0 or n_full == 0:
-        logger.info("mesh encode: %d streams with %d full frames go stream by stream "
-                    "(encode_flac_batch_device)", T, n_full)
+    if T == 0 or n_full == 0 or not device_blocksize(blocksize):
+        logger.info("mesh encode: %d streams with %d full frames of %d samples go stream by "
+                    "stream (encode_flac_batch_device)", T, n_full, blocksize)
         return encode_flac_batch_device(
             samples_batch, sample_rate, bits_per_sample, compression_level, blocksize,
             comments_list, vendor, compute_md5, zero_point=zero_point,

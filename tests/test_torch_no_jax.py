@@ -27,6 +27,13 @@ from flac_raster_tpu_torch.io import geo, geotiff, remote
 from flac_raster_tpu_torch.models import spatial, streaming
 from flac_raster_tpu_torch import parallel
 from flac_raster_tpu_torch.parallel import decode_mesh, mesh, multihost, tile_engine
+from flac_raster_tpu_torch import cli, utils, __main__
+from flac_raster_tpu_torch.utils import profiling, selftest
+try:
+    from flac_raster_tpu_torch.io import async_reader
+except ImportError:    # no aiohttp (the card's machine): the package says so
+    assert flac_raster_tpu_torch.ASYNC_GEOTIFF_AVAILABLE is False
+    assert flac_raster_tpu_torch.AsyncGeoTIFFReader is None
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flac_raster_tpu"))

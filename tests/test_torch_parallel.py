@@ -21,7 +21,7 @@ from flac_raster_tpu.parallel.tile_engine import (
     encode_flac_batch_mesh as jax_encode_batch_mesh,
     frame_bytes_from_subframe_bits as jax_frame_bytes,
 )
-from flac_raster_tpu_torch import decode_flac
+from flac_raster_tpu_torch import decode_flac, encode_flac
 from flac_raster_tpu_torch.codec.device_encoder import encode_flac_batch_device
 from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
 from flac_raster_tpu_torch.parallel import (
@@ -123,7 +123,8 @@ def test_mesh_encode_level5_envelope_and_batch_identity():
 
 def test_mesh_encode_routes_streams_without_full_frames(caplog):
     """No full frame: stream by stream, logged at INFO; no stream: []; a
-    blocksize that is not a power of two: the item-12 NotImplementedError."""
+    blocksize that is not a power of two: stream by stream too, each through
+    the scalar host encoder (ROADMAP Queue 1 item 12)."""
     rng = np.random.default_rng(8)
     short = _walk(rng, (3, N - 5, 1), 20)
     with caplog.at_level("INFO", logger="flac_raster_tpu_torch.tile_engine"):
@@ -131,9 +132,9 @@ def test_mesh_encode_routes_streams_without_full_frames(caplog):
     assert "stream by stream" in caplog.text
     assert got == encode_flac_batch_device(short, 44100, 16, 1, blocksize=N, device="cpu")
     assert encode_flac_batch_mesh(short[:0], 44100, 16, 1, blocksize=N, mesh=_cpu_grid(1)) == []
-    with pytest.raises(NotImplementedError, match="item 12"):
-        encode_flac_batch_mesh(_walk(rng, (2, 3000, 1), 9), 44100, 16, 1, blocksize=1152,
-                               mesh=_cpu_grid(1))
+    odd = _walk(rng, (2, 3000, 1), 9)
+    assert encode_flac_batch_mesh(odd, 44100, 16, 1, blocksize=1152, mesh=_cpu_grid(1)) == [
+        encode_flac(x, 44100, 16, 1, blocksize=1152) for x in odd]
 
 
 def test_tile_grid_errors_match_jax():
