@@ -110,7 +110,16 @@ is not 0:
      --spatial``, logging the stage timers and the traces' ``frtt.*`` host
      ranges; each command timed with launch counts;
  21. ``flac_raster_tpu_torch.utils.selftest`` on the card: every check OK
-     (its kernel-vs-plain launches are not counted).
+     (its kernel-vs-plain launches are not counted);
+ 22. the chunk graphs (``codec/chunk_graph``, one CUDA graph of
+     ``plan_and_emit`` a chunk shape, which every encode above replays) on
+     the 8192x8192 scene: a level-5 chunk, a partial chunk of 761 frames, a
+     level-8 mid-side chunk and 32 tiles' frames each replayed and held to
+     an eager ``plan_and_emit`` of the same chunk (tolerance 0), launch
+     counts N times the captured ones, replay and eager timed (CUDA events
+     and the host's enqueue); a warm encode that captures nothing, timed
+     three times with the peak of device memory and profiled; every
+     capture's time and pool memory.
 
 Phases 18 and 19 also time the CRC-16 check the row reads and the device
 bbox read make: the range decode and the batch decode of every tile with
@@ -1612,6 +1621,81 @@ def cli_phase(band: np.ndarray, work: Path, card: str, dev) -> None:
         logging.getLogger("flac_raster_tpu_torch").setLevel(logging.NOTSET)
 
 
+GRAPH_PARTIAL_FRAMES = 761   # the 10980x10980 band's last chunk (29 433 = 14 x 2048 + 761)
+
+
+def graph_phase(scene: np.ndarray, dev, card: str) -> None:
+    """Phase 22: the chunk graphs (``codec/chunk_graph``) on the 8192x8192
+    scene: a replay of each shape equals an eager ``plan_and_emit`` of the
+    same chunk (tolerance 0) and adds its captured launches, for a level-5
+    chunk, a partial chunk, a level-8 mid-side chunk (the scene and a
+    correlated second band) and a batch of 512x512 tiles' frames; the
+    graphs' host enqueue and CUDA-event time beside eager's; then a warm
+    encode (no capture) with the peak of device memory, timed three times
+    and once under the profiler (busy share), and every capture's time and
+    pool memory."""
+    import torch
+
+    from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.codec import chunk_graph
+    from flac_raster_tpu_torch.codec.device_encoder import _frame_layout
+    from flac_raster_tpu_torch.codec.encoder import EncoderConfig
+    from flac_raster_tpu_torch.ops import device_emit
+    from flac_raster_tpu_torch.utils.selftest import card_rows, check_chunk_graph
+
+    N, F = 4096, CHUNK_FRAMES
+    frames = scene.reshape(-1, N, 1)
+    l5 = _frame_layout(N, 16, 44100, 1, EncoderConfig.from_level(LEVEL))
+    rng = np.random.default_rng(7)
+    band1 = np.clip(0.9 * frames[:F, :, 0] + 1500.0 + rng.normal(0, 8.0, (F, N)), 0, 65535)
+    pair = np.stack([frames[:F, :, 0], band1.astype(np.uint16)], axis=2)
+    t = SPATIAL_TILE
+    tiles = scene[: 2 * t].reshape(2, t, SCENE_SIZE // t, t).transpose(0, 2, 1, 3)
+    per_tile = t * t // N
+    cases = [
+        ("level-5 chunk", frames[:F], np.arange(F), l5),
+        ("partial chunk", frames[F : F + GRAPH_PARTIAL_FRAMES],
+         np.arange(F, F + GRAPH_PARTIAL_FRAMES), l5),
+        ("level-8 mid-side chunk", pair, np.arange(F),
+         _frame_layout(N, 16, 44100, 2, EncoderConfig.from_level(STEREO_LEVEL))),
+        (f"{tiles.shape[0] * tiles.shape[1]} tiles' frames", tiles.reshape(-1, N, 1),
+         np.tile(np.arange(per_tile), tiles.shape[0] * tiles.shape[1]), l5),
+    ]
+    for label, rows, numbers, layout in cases:
+        graph = check_chunk_graph(rows, numbers, layout, 1 << 15, dev)
+        x = card_rows(rows, dev).permute(0, 2, 1)
+        nums = torch.from_numpy(numbers).to(dev)
+        eager_ms, eager_host = events_and_host_ms(
+            lambda: device_emit.plan_and_emit(x, nums, n_words=graph.n_words, zero_point=1 << 15,
+                                              **layout), 3)
+        graph_ms, graph_host = events_and_host_ms(graph.replay, 10)
+        log(f"  {label} {tuple(rows.shape)}: replay equal to eager plan_and_emit (tolerance 0), "
+            f"launches a replay K1 {graph.rice_launches}, packs {graph.pack_launches}; capture "
+            f"{graph.capture_s:.3f} s, pool {graph.pool_bytes / 1e9:.3f} GB; events / host "
+            f"enqueue ms: replay {graph_ms:.3f} / {graph_host:.3f}, eager {eager_ms:.3f} / "
+            f"{eager_host:.3f} | {card}")
+        del x, graph
+    conv = RasterFLACConverter(device="cuda", compute_md5=False)
+    conv.encode_array(scene, compression_level=LEVEL)
+    captures = len(chunk_graph.CAPTURES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        _, dt, launches = run_path("the warm level-5 encode",
+                                   lambda: conv.encode_array(scene, compression_level=LEVEL),
+                                   encode_kernels())
+        times.append(dt)
+    if len(chunk_graph.CAPTURES) != captures:
+        raise AssertionError("a warm encode captured a graph again")
+    rates = ", ".join(f"{scene.nbytes / t / 1e6:.2f}" for t in times)
+    log(f"  warm level-5 encode, MD5 off: {rates} MB/s, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches "
+        f"{launches}, no capture | {card}")
+    profile_encode(conv, scene)
+    for c in chunk_graph.CAPTURES:
+        log(f"  capture {c}")
+
+
 def main() -> int:
     import torch
 
@@ -1788,6 +1872,10 @@ def run(work: Path, t_start: float) -> int:
     if selftest.main(["--device", "cuda"]) != 0:
         raise AssertionError("the selftest failed")
     log(f"selftest: every check OK, {time.perf_counter() - t0:.1f} s | {card}")
+
+    log(f"phase 22: the chunk graphs on the {SCENE_SIZE}x{SCENE_SIZE} scene")
+    graph_phase(make_raster(SCENE_SIZE), dev, card)
+    torch.cuda.empty_cache()
 
     for k in kernels:
         k["launches"] = TOTAL_LAUNCHES.get(k["name"], 0)

@@ -5,8 +5,8 @@ The port of ``flac_raster_tpu.codec.device_encoder.encode_flac_device``.
 Each chunk of full frames is copied to the device, planned and emitted
 there (``ops/device_emit.plan_and_emit``: the Rice cost kernel, the v1
 pack of the header stream and the windowed pack of the sample stream;
-2-channel streams search mid-side there too), and the used prefix of its
-word buffer is copied back to pinned host memory.  The host byteswaps it
+2-channel streams search mid-side there too), and its word buffer is
+copied back to pinned host memory.  The host byteswaps the used words
 to big-endian, patches every frame's CRC-8/CRC-16 with the native C pass,
 and writes STREAMINFO and the FRTP v2 layout block.  A partial last frame
 is encoded on the host (``codec/host_encoder.emit_tail_frame``), and so is
@@ -26,14 +26,20 @@ of a batch of same-shaped streams (the tiles of ``converter.
 encode_array_batch``), each stream's frames numbered from 0, and cuts each
 stream's bytes out of the chunks at its frames' cumulative size.
 
-The loop is deliberately simple and sequential -- copy in, compute, copy
-out, one chunk after another.  Overlapping those stages is later work.
+On a card each chunk is one replay of a CUDA graph of its shape
+(``codec/chunk_graph``), and the loop keeps one chunk in flight, as the
+JAX encoder's does: chunk i is dispatched before chunk i - 1 is drained;
+host rows go up from pinned, double-buffered memory on a copy stream while
+the previous chunk computes; each chunk's outputs come back into pinned,
+double-buffered memory; and the drain (err flag, byteswap, CRC patch) runs
+on worker threads.  On the CPU the same loop runs each chunk eagerly.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,9 +47,9 @@ from torch.profiler import record_function
 
 from .. import native
 from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_header
-from ..ops.device_emit import plan_and_emit, worst_case_words
+from ..ops.device_emit import worst_case_words
 from ..ops.stereo import midside_ok
-from . import host_encoder
+from . import chunk_graph, host_encoder
 from .decoder import md5_of_samples
 from .encoder import (
     _BPS_CODES,
@@ -60,6 +66,12 @@ logger = logging.getLogger("flac_raster_tpu_torch.device_encoder")
 
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
 PLAN_CHUNK_FRAMES = 2048   # frames a chunk of the encoder's loop, by default
+# the drain's worker threads, and the host output slots they need: chunk i
+# reuses the slot of chunk i - DRAIN_SLOTS, whose drain must have ended; one
+# drain of a 2048-frame level-5 chunk (byteswap, CRC, copy) takes about as
+# long as the card's compute of it, so one thread would hold the card back
+DRAIN_THREADS = 2
+DRAIN_SLOTS = DRAIN_THREADS + 1
 
 
 def resolve_device(device) -> torch.device:
@@ -110,16 +122,9 @@ def as_int64(t: torch.Tensor) -> torch.Tensor:
     return t.view(signed).long() & ((1 << (8 * t.element_size())) - 1)
 
 
-def _upload(rows: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Copy raw rows to the device.  uint16/uint32 travel as their signed
-    bit patterns and are viewed back as unsigned on the device, so no
-    PyTorch kernel has to support those dtypes."""
-    unsigned = {np.dtype(np.uint16): (np.int16, torch.uint16),
-                np.dtype(np.uint32): (np.int32, torch.uint32)}.get(rows.dtype)
-    if unsigned is None:
-        return torch.from_numpy(rows).to(dev)
-    signed, utype = unsigned
-    return torch.from_numpy(rows.view(signed)).to(dev).view(utype)
+def _torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy integer dtype."""
+    return getattr(torch, np.dtype(dtype).name)
 
 
 def _patch_crcs(buf: np.ndarray, frame_bits: np.ndarray, hdr_bits: np.ndarray) -> None:
@@ -199,63 +204,208 @@ def _frame_layout(blocksize: int, bits_per_sample: int, sample_rate: int, channe
     )
 
 
+class _HostChunks:
+    """The chunk loop's device side on the CPU: each chunk planned and
+    emitted eagerly (the plain PyTorch versions of the kernels)."""
+
+    def __init__(self, frames_of, bounds, numbers: torch.Tensor, n_words_of, zero_point: int,
+                 layout: dict):
+        self.frames_of, self.bounds, self.numbers = frames_of, bounds, numbers
+        self.n_words_of, self.zero_point, self.layout = n_words_of, zero_point, layout
+
+    def stage(self, i: int) -> None:
+        pass
+
+    def dispatch(self, i: int):
+        g0, g1 = self.bounds[i]
+        rows = self.frames_of(g0, g1)
+        if not isinstance(rows, torch.Tensor):
+            rows = torch.from_numpy(rows)
+        words, head = chunk_graph.emit_chunk(rows.permute(0, 2, 1), self.numbers[g0:g1],
+                                             self.n_words_of(g1 - g0), self.zero_point,
+                                             self.layout)
+        return None, words, head
+
+
+class _CardChunks:
+    """The chunk loop's device side on a card: each chunk one replay of its
+    shape's CUDA graph (``chunk_graph``), host rows staged through pinned,
+    double-buffered memory and uploaded on a copy stream while the previous
+    chunk computes, and each chunk's outputs copied back into one of
+    ``DRAIN_SLOTS`` pinned buffers on the compute stream right after its
+    replay (stream order keeps the next replay from overwriting them first).
+
+    The words come back at their worst-case length (``n_words``): the used
+    prefix is known only from the frame bits, and waiting for those would
+    stall the pipeline; the extra bytes cost well under a millisecond a
+    chunk on the host link.
+    """
+
+    def __init__(self, frames_of, bounds, numbers: torch.Tensor, n_words_of, zero_point: int,
+                 layout: dict, dtype: torch.dtype, channels: int, dev: torch.device):
+        self.frames_of, self.bounds, self.numbers = frames_of, bounds, numbers
+        N = layout["blocksize"]
+        self.graphs = {}
+        for F in sorted({g1 - g0 for g0, g1 in bounds}, reverse=True):
+            with record_function("frtt.capture"):
+                self.graphs[F] = chunk_graph.chunk_graph(dev, F, channels, N, dtype,
+                                                         n_words_of(F), zero_point, layout)
+        big = self.graphs[max(self.graphs)]
+        self.stream = torch.cuda.current_stream(dev)
+        self.copy_stream = torch.cuda.Stream(dev)
+        self.dev_in = None                        # the upload's landing, one chunk
+        self.pinned_in = [None, None]
+        # each slot's last chunk: its upload's event, or its rows on the card
+        self.staged = [None, None]
+        self.consumed = None                      # dev_in copied into a graph's input
+        self.pinned_out = [(torch.empty(big.n_words, dtype=torch.int32, pin_memory=True),
+                            torch.empty(big.head.numel(), dtype=torch.int64, pin_memory=True))
+                           for _ in range(DRAIN_SLOTS)]
+
+    def stage(self, i: int) -> None:
+        """Upload chunk i's host rows on the copy stream (a device tensor
+        is copied at its dispatch instead)."""
+        rows = self.frames_of(*self.bounds[i])
+        slot = i % 2
+        if isinstance(rows, torch.Tensor):
+            self.staged[slot] = rows
+            return
+        if self.staged[slot] is not None:
+            self.staged[slot].synchronize()      # chunk i - 2's upload left this buffer
+        n = rows.size
+        if self.pinned_in[slot] is None:
+            if self.dev_in is None:
+                self.dev_in = torch.empty_like(self.graphs[max(self.graphs)].x)
+            self.pinned_in[slot] = torch.empty(self.dev_in.numel(), dtype=self.dev_in.dtype,
+                                               pin_memory=True)
+        host = self.pinned_in[slot][:n]
+        dst = host.numpy().reshape(rows.shape)
+        np.copyto(dst, rows.view(dst.dtype))     # unsigned rows as their signed bits
+        with torch.cuda.stream(self.copy_stream):
+            if self.consumed is not None:
+                self.copy_stream.wait_event(self.consumed)
+            self.dev_in.view(-1)[:n].copy_(host, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.copy_stream)
+        self.staged[slot] = done
+
+    def dispatch(self, i: int):
+        """Copy chunk i into its graph's input, replay, and enqueue the
+        copy of its outputs to the host; returns (the copy's event, the
+        pinned words, the pinned head)."""
+        g0, g1 = self.bounds[i]
+        graph = self.graphs[g1 - g0]
+        staged = self.staged[i % 2]
+        if isinstance(staged, torch.Tensor):     # rows already on the card
+            graph.x.copy_(staged.view(graph.x.dtype))
+        else:
+            self.stream.wait_event(staged)
+            graph.x.view(-1).copy_(self.dev_in.view(-1)[: graph.x.numel()])
+            self.consumed = torch.cuda.Event()
+            self.consumed.record(self.stream)
+        graph.numbers.copy_(self.numbers[g0:g1])
+        graph.replay()
+        words, head = self.pinned_out[i % DRAIN_SLOTS]
+        words, head = words[: graph.n_words], head[: graph.head.numel()]
+        words.copy_(graph.words, non_blocking=True)
+        head.copy_(graph.head, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        return done, words, head
+
+
+def _drain(span: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail_bits: int):
+    """The bytes, CRCs patched, frame sizes and first C - 1 subframe sizes
+    of the chunk of frames ``span`` = (g0, g1), from its dispatched
+    outputs (on the drain's worker thread)."""
+    g0, g1 = span
+    done, words_t, head_t = out
+    with record_function("frtt.readback"):       # waits for the chunk's compute
+        if done is not None:
+            done.synchronize()
+        frame_bits, err, subs = chunk_graph.split_head(head_t.numpy(), g1 - g0, channels)
+    if err:
+        raise RuntimeError(
+            f"frames {g0}..{g1 - 1}: the sample stream broke the precondition "
+            "of the pack kernel; its words are not valid"
+        )
+    total_bits = int(frame_bits.sum())
+    with record_function("frtt.host_crc"):
+        words = words_t[: (total_bits + 31) // 32].numpy()
+        buf = words.view(np.uint32).astype(">u4").view(np.uint8)[: (total_bits + 7) // 8]
+        fi = frame_numbers[g0:g1]
+        n_bytes = np.sum(fi[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
+        _patch_crcs(buf, frame_bits, 32 + n_bytes * 8 + bs_tail_bits)
+    return buf.tobytes(), frame_bits >> 3, subs[:, :-1].copy()
+
+
 def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layout: dict,
-                      zero_point: int, chunk: int, dev: torch.device):
+                      zero_point: int, chunk: int, dev: torch.device, dtype: torch.dtype):
     """Plan and emit full frames on ``dev``, ``chunk`` frames at a time.
 
-    ``frames_of(g0, g1)`` gives frames [g0, g1) as a (g1 - g0, C, N)
-    integer tensor on ``dev``; ``frame_numbers`` (one per frame) go into
-    the headers.  Returns (the frames' bytes, CRCs patched; each frame's
-    size in bytes; its first C - 1 subframes' sizes in bits).
+    ``frames_of(g0, g1)`` gives frames [g0, g1) as (g1 - g0, N, C) integer
+    rows of ``dtype``: a numpy array, or a tensor already on ``dev``;
+    ``frame_numbers`` (one per frame) go into the headers.  Returns (the
+    frames' bytes, CRCs patched; each frame's size in bytes; its first
+    C - 1 subframes' sizes in bits).
+
+    One chunk is in flight, as in the JAX encoder's loop: chunk i is
+    dispatched before chunk i - 1 is drained, and the drain (the wait for
+    the chunk's outputs, the err flag, the byteswap and the CRC patch)
+    runs on a worker thread (one of ``DRAIN_THREADS``) while the card
+    computes the next chunk.  A chunk's err flag raises with its own
+    frames; an error on a worker raises here as itself, and the workers
+    are joined before it does.
     """
     blocksize, bps = layout["blocksize"], layout["bps"]
     frame_numbers = np.asarray(frame_numbers, np.int64)
-    numbers_dev = torch.from_numpy(frame_numbers).to(dev)
-    pinned = None
-    chunks: list[bytes] = []
-    sizes: list[np.ndarray] = []
-    subs: list[np.ndarray] = []
-    # record_function ranges name the stages in a torch.profiler trace
-    # (host time per stage; chip_smoke.py prints them)
-    for g0 in range(0, len(frame_numbers), chunk):
-        g1 = min(g0 + chunk, len(frame_numbers))
-        with record_function("frtt.upload"):
-            xc = frames_of(g0, g1)
-        n_words = worst_case_words(g1 - g0, channels, blocksize, bps + layout["mid_side"])
-        with record_function("frtt.plan_and_emit"):
-            out = plan_and_emit(xc, numbers_dev[g0:g1], n_words=n_words,
-                                zero_point=zero_point, **layout)
+    numbers = torch.from_numpy(frame_numbers).to(dev)
+    bounds = [(g0, min(g0 + chunk, len(frame_numbers)))
+              for g0 in range(0, len(frame_numbers), chunk)]
 
-        with record_function("frtt.readback"):  # waits for the chunk's compute
-            # frame bits and the pack's err flag in one copy
-            head = torch.cat([out["frame_bits"], out["err"].long()]).cpu().numpy()
-            frame_bits, err = head[:-1], int(head[-1])
-            if err:
-                raise RuntimeError(
-                    f"frames {g0}..{g1 - 1}: the sample stream broke the precondition "
-                    "of the pack kernel; its words are not valid"
-                )
-            total_bits = int(frame_bits.sum())
-            used = (total_bits + 31) // 32
+    def n_words_of(F):
+        return worst_case_words(F, channels, blocksize, bps + layout["mid_side"])
+
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    tail_bits = layout["bs_tail_bits"]
+    drains = []
+    # record_function ranges name the stages in a torch.profiler trace
+    # (host time per stage; chip_smoke.py prints them; a trace records the
+    # thread that started it, so the drain's own ranges may be missing)
+    with (device_scope(dev),
+          ThreadPoolExecutor(DRAIN_THREADS, thread_name_prefix="frtt-drain") as pool):
+        try:
             if dev.type == "cuda":
-                if pinned is None or pinned.numel() < used:
-                    pinned = torch.empty(n_words, dtype=torch.int32, pin_memory=True)
-                host = pinned[:used]
-                host.copy_(out["words"][:used])
-                words = host.numpy()
+                chunks = _CardChunks(frames_of, bounds, numbers, n_words_of, zero_point, layout,
+                                     dtype, channels, dev)
             else:
-                words = out["words"][:used].numpy()
-        with record_function("frtt.host_crc"):
-            buf = words.view(np.uint32).astype(">u4").view(np.uint8)[: (total_bits + 7) // 8]
-            buf = np.ascontiguousarray(buf)
-            fi = frame_numbers[g0:g1]
-            n_bytes = np.sum(fi[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
-            _patch_crcs(buf, frame_bits.astype(np.int64),
-                        32 + n_bytes * 8 + layout["bs_tail_bits"])
-        chunks.append(buf.tobytes())
-        sizes.append(frame_bits.astype(np.int64) >> 3)
-        subs.append(out["subframe_bits"][:, :-1].cpu().numpy().astype(np.int64))
-    return b"".join(chunks), np.concatenate(sizes), np.concatenate(subs)
+                chunks = _HostChunks(frames_of, bounds, numbers, n_words_of, zero_point, layout)
+            with record_function("frtt.upload"):
+                chunks.stage(0)
+            for i in range(len(bounds)):
+                if i >= DRAIN_SLOTS:
+                    with record_function("frtt.drain_wait"):
+                        drains[i - DRAIN_SLOTS].result()   # its host slot is free again
+                with record_function("frtt.plan_and_emit"):
+                    out = chunks.dispatch(i)
+                if i + 1 < len(bounds):
+                    with record_function("frtt.upload"):
+                        chunks.stage(i + 1)
+                if i:
+                    drains.append(pool.submit(_drain, bounds[i - 1], prev, channels,
+                                              frame_numbers, tail_bits))
+                prev = out
+            drains.append(pool.submit(_drain, bounds[-1], prev, channels, frame_numbers,
+                                      tail_bits))
+            with record_function("frtt.drain_wait"):
+                parts = [d.result() for d in drains]
+        except BaseException:
+            for d in drains:
+                d.cancel()
+            raise
+    return (b"".join(p[0] for p in parts), np.concatenate([p[1] for p in parts]),
+            np.concatenate([p[2] for p in parts]))
 
 
 def _assemble_stream(frames: bytes, sizes: np.ndarray, subs: np.ndarray, tail, n: int,
@@ -363,14 +513,12 @@ def encode_flac_device(
         samples = np.ascontiguousarray(samples)
 
     def frames_of(g0, g1):
-        xc = samples[g0 * blocksize : g1 * blocksize]
-        xc = xc if on_device else _upload(xc, dev)
-        return xc.reshape(g1 - g0, blocksize, channels).permute(0, 2, 1)
+        return samples[g0 * blocksize : g1 * blocksize].reshape(g1 - g0, blocksize, channels)
 
     layout = _frame_layout(blocksize, bits_per_sample, sample_rate, channels, cfg)
     frames, sizes, subs = _emit_full_frames(
         frames_of, np.arange(n_full), channels, layout, zero_point,
-        max(1, int(plan_chunk_frames)), dev)
+        max(1, int(plan_chunk_frames)), dev, samples.dtype if on_device else _torch_dtype(dtype))
     tail = None
     if n_full * blocksize < n:
         tail = samples[n_full * blocksize :]
@@ -458,14 +606,15 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
         # (tiles * frames, N, C): a view when the shard holds whole tiles
         rows = full[tiles, frames].reshape(-1, blocksize, channels)
 
-        def frames_of(g0, g1, rows=rows, dev=dev):
-            return _upload(np.ascontiguousarray(rows[g0:g1]), dev).permute(0, 2, 1)
+        def frames_of(g0, g1, rows=rows):
+            return rows[g0:g1]
 
         nf = frames.stop - frames.start
         numbers = np.tile(np.arange(frames.start, frames.stop), tiles.stop - tiles.start)
         with device_scope(dev):
             body, sizes, subs = _emit_full_frames(frames_of, numbers, channels, layout,
-                                                  zero_point, max(1, int(plan_chunk_frames)), dev)
+                                                  zero_point, max(1, int(plan_chunk_frames)), dev,
+                                                  _torch_dtype(samples_batch.dtype))
         ends = np.concatenate([[0], np.cumsum(sizes)])
         for k, t in enumerate(range(tiles.start, tiles.stop)):
             f0, f1 = k * nf, (k + 1) * nf

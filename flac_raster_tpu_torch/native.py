@@ -1,11 +1,10 @@
 """Host C runtime of the port: CRC patching, the native frame decoder and
 the residual decoder of the Python frame walk.
 
-The port reuses the JAX package's host C sources (``flac_raster_tpu/native/
-bitpack.cpp`` and ``plan.cpp``) by path: they are read and compiled with
-``g++ -O3 -shared -fPIC`` into the port's own git-ignored build directory.
-Nothing is imported from ``flac_raster_tpu`` (its ``__init__`` imports
-JAX) and nothing is written into its ``native/`` directory.
+The C source is the port's own, ``csrc/host/bitpack.cpp`` (the parts of
+the JAX package's host runtime that these five entry points need, copied),
+compiled with ``g++ -O3 -shared -fPIC`` into the port's git-ignored build
+directory.
 
 A failed build raises: there is no per-byte Python CRC fallback, which
 would take minutes on a full-size raster.
@@ -24,8 +23,7 @@ import numpy as np
 
 __all__ = ["crc8_patch", "crc16_patch", "crc16_spans", "decode_frames", "decode_residual"]
 
-_SRC_DIR = Path(__file__).resolve().parent.parent / "flac_raster_tpu" / "native"
-_SRCS = (_SRC_DIR / "bitpack.cpp", _SRC_DIR / "plan.cpp")
+_SRCS = (Path(__file__).resolve().parent / "csrc" / "host" / "bitpack.cpp",)
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _CMD = ("g++", "-O3", "-shared", "-fPIC", "-std=c++17")
 _lib = None

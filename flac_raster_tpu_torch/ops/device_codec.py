@@ -28,6 +28,8 @@ wraparound is reproduced where XLA wraps (the LPC residual).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -258,12 +260,20 @@ def _lpc_residual(x: torch.Tensor, qc: torch.Tensor, shift: torch.Tensor, order:
     return (x64 - pred).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _window_on(wname: str, N: int, dev: torch.device) -> torch.Tensor:
+    """An apodization window on ``dev``, copied up once: a host-to-device
+    copy inside a chunk would wait on the host (and cannot be captured in
+    a CUDA graph)."""
+    return torch.from_numpy(apodization_window(wname, N)).to(dev)
+
+
 def _autocorrelation(x: torch.Tensor, order: int, wname: str) -> torch.Tensor:
     """(B, order+1) float32 autocorrelation of the windowed blocks, each
     lag summed by :func:`fixed_order_sum` (a block's plan must not depend
     on the batch it is planned in)."""
     B, N = x.shape
-    w = torch.from_numpy(apodization_window(wname, N)).to(x.device)
+    w = _window_on(wname, N, x.device)
     xf = x.to(torch.float32) * w[None, :]
     prods = torch.zeros((B, order + 1, N), dtype=torch.float32, device=x.device)
     for lag in range(order + 1):

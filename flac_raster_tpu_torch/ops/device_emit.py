@@ -99,16 +99,24 @@ def _stereo_tables(dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.stack([CHAN_CODES, SLOT0_VARIANT, SLOT1_VARIANT])).to(dev)
 
 
+@functools.lru_cache(maxsize=None)
+def _utf8_tables(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The UTF-8 thresholds and prefixes on ``dev``, copied up once per
+    device: a host-to-device copy inside a chunk would wait on the host
+    (and cannot be captured in a CUDA graph)."""
+    return torch.from_numpy(_UTF8_THRESH).to(dev), torch.from_numpy(_UTF8_PREFIX).to(dev)
+
+
 def _utf8_tokens(fi: torch.Tensor):
     """(F,) frame numbers -> values (F, 6), lengths (F, 6), n_bytes (F,)."""
-    thr = torch.from_numpy(_UTF8_THRESH).to(fi.device)
+    thr, prefixes = _utf8_tables(fi.device)
     n_bytes = (fi[:, None] >= thr[None, :]).sum(dim=1) + 1
     j = torch.arange(6, device=fi.device)[None, :]
     nb = n_bytes[:, None]
     used = j < nb
     shift = torch.clamp(6 * (nb - 1 - j), min=0)
     payload = fi[:, None] >> shift
-    prefix = torch.from_numpy(_UTF8_PREFIX).to(fi.device)[torch.clamp(nb - 1, 0, 5)]
+    prefix = prefixes[torch.clamp(nb - 1, 0, 5)]
     vals = torch.where(j == 0, prefix | payload, 0x80 | (payload & 0x3F))
     vals = torch.where(used, vals, 0)
     lens = torch.where(used, 8, 0)

@@ -9,7 +9,7 @@ and bit operations, so the raster is bit-exact to the host inverse
   * shift, 8- and 16-bit dtypes: PCM + zero point, which fits the dtype by
     construction; torch's unsigned 16-bit type supports few operations, so
     the sum narrows through the signed type of the same width and is viewed
-    as the unsigned one (``codec/device_encoder._upload`` in reverse);
+    as the unsigned one (the encoder uploads such rows as their signed view);
   * shift, int32 and uint32: PCM + zero point modulo 2^32 (the identity
     for int32, a flip of the top bit for uint32's 2^31), viewed as the dtype;
   * float32_bits: the order-preserving fold (a set sign bit flips the

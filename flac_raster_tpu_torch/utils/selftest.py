@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 __all__ = ["main", "make_raster", "make_dem", "make_minmax_dem", "make_stereo",
-           "check_kernels", "check_plan", "check_encode", "check_decode"]
+           "check_kernels", "check_plan", "check_encode", "check_decode", "check_chunk_graph",
+           "card_rows"]
 
 M32 = 0xFFFFFFFF
 SIZE_ENVELOPE = 1.0025
@@ -396,6 +397,55 @@ def check_restore(rest_args: list, wide: bool = False):
 KERNELS = ("rice_cost_sums", "pack_tokens", "pack_tokens_v2", "pack_tokens_v3",
            "pack_tokens_v4", "pack_tokens_v5", "gather_windows", "rice_scan_full",
            "rice_group_step", "restore")
+
+
+def card_rows(rows: np.ndarray, dev) -> torch.Tensor:
+    """Host integer rows as a tensor of their dtype on ``dev`` (unsigned
+    types through their signed views)."""
+    signed = {np.dtype(np.uint16): (np.int16, torch.uint16),
+              np.dtype(np.uint32): (np.int32, torch.uint32)}.get(rows.dtype)
+    if signed is None:
+        return torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+    return torch.from_numpy(np.ascontiguousarray(rows).view(signed[0])).to(dev).view(signed[1])
+
+
+def check_chunk_graph(rows: np.ndarray, numbers: np.ndarray, layout: dict, zero_point: int,
+                      dev, replays: int = 3) -> dict:
+    """A chunk's CUDA graph (``codec/chunk_graph``) against an eager
+    ``plan_and_emit`` of the same (F, N, C) rows and frame numbers: the
+    last of ``replays`` replays gives the same words, frame bits, subframe
+    bits and err flag (tolerance 0), and the replays add ``replays`` times
+    the captured launches to the kernels' counters.  Returns the graph."""
+    from ..codec import chunk_graph
+    from ..ops import device_emit, pack, rice_cost
+
+    F, _, C = rows.shape
+    x = card_rows(rows, dev)
+    nums = torch.from_numpy(np.asarray(numbers, np.int64)).to(dev)
+    n_words = device_emit.worst_case_words(F, C, N, layout["bps"] + layout["mid_side"])
+    want = device_emit.plan_and_emit(x.permute(0, 2, 1), nums, n_words=n_words,
+                                     zero_point=zero_point, **layout)
+    graph = chunk_graph.chunk_graph(torch.device(dev), F, C, N, x.dtype, n_words, zero_point,
+                                    layout)
+    graph.x.copy_(x.view(graph.x.dtype))
+    graph.numbers.copy_(nums)
+    rice0, packs0 = rice_cost.LAUNCHES, dict(pack.LAUNCHES)
+    for _ in range(replays):
+        graph.replay()
+    torch.cuda.synchronize()
+    if rice_cost.LAUNCHES - rice0 != replays * graph.rice_launches or any(
+            n - packs0[v] != replays * graph.pack_launches.get(v, 0)
+            for v, n in pack.LAUNCHES.items()):
+        raise AssertionError("a graph's replays moved the launch counts by other than the "
+                             "captured launches")
+    frame_bits, err, subs = chunk_graph.split_head(graph.head.cpu().numpy(), F, C)
+    if not (torch.equal(graph.words, want["words"])
+            and np.array_equal(frame_bits, want["frame_bits"].cpu().numpy())
+            and np.array_equal(subs, want["subframe_bits"].cpu().numpy())
+            and err == int(want["err"].item())):
+        raise AssertionError(f"the graph of a ({F}, {N}, {C}) chunk differs from eager "
+                             "plan_and_emit")
+    return graph
 
 
 def check_kernels(dev, frames: int = 16) -> dict:

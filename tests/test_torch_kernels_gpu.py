@@ -265,18 +265,28 @@ def test_pack_versions_hostile_stream(cuda, version):
 def test_stereo_tail_encode_on_card_matches_cpu(cuda, level, monkeypatch):
     """A 2-band raster with a tail frame, through mid-side, the windowed
     sample pack and the host tail: identical bytes on the card and on the
-    CPU.  At level 8 the float32 LPC stage runs on the CPU for both (its
-    sums round in another order on the card), so the integer pipeline and
-    every kernel are held to the CPU's bytes."""
+    CPU.  At level 8 the float32 LPC stage gives way, on both, to fixed
+    integer predictors, one per apodization window (the float sums round
+    in another order on the card, and a chunk's CUDA graph cannot call
+    back to the host), so the integer pipeline and every kernel are held
+    to the CPU's bytes."""
     from flac_raster_tpu_torch import RasterFLACConverter, decode_flac
     from flac_raster_tpu_torch.ops import device_codec, device_emit
 
-    float_stage = device_codec._lpc_analyze
+    taps = {"tukey(0.5)": [2, -1], "tukey(0.25)": [3, -3, 1], "welch": [1]}
 
-    def on_cpu(x, bps_e, *args):
-        return tuple(t.to(x.device) for t in float_stage(x.cpu(), bps_e.cpu(), *args))
+    def integer_stage(x, bps_e, order, precision, wname):
+        B = x.shape[0]
+        qc = torch.zeros((B, order), dtype=torch.int32, device=x.device)
+        tap = taps.get(wname, [2, -1])
+        for j, t in enumerate(tap):
+            qc[:, j] = t
+        shift = torch.zeros(B, dtype=torch.int32, device=x.device)
+        order_arr = torch.full((B,), len(tap), dtype=torch.int32, device=x.device)
+        safe = torch.ones(B, dtype=torch.bool, device=x.device)
+        return order_arr, qc, shift, safe, device_codec._lpc_residual(x, qc, shift, order)
 
-    monkeypatch.setattr(device_codec, "_lpc_analyze", on_cpu)
+    monkeypatch.setattr(device_codec, "_lpc_analyze", integer_stage)
     rng = np.random.default_rng(level)
     t = np.arange(100 * 333)
     b0 = 30000 + 4000 * np.sin(t / 700.0) + np.cumsum(rng.integers(-9, 10, t.size))
@@ -922,3 +932,90 @@ def test_grid_encode_on_card_1x2_equals_1x1(cuda, level):
     assert one == two
     for blob, tile in zip(one, x):
         assert blob == encode_flac_device(tile, 44100, 16, level, device=cuda, **kw)
+
+
+def _graph_case(case):
+    """(samples (F, N, C) numpy, frame numbers, layout, zero point) of a
+    chunk: level 5 mono uint16, level 8 stereo int16, a partial chunk of
+    five frames, and a batch of four tiles' frames, each numbered from 0."""
+    from flac_raster_tpu_torch.codec.device_encoder import _frame_layout
+    from flac_raster_tpu_torch.codec.encoder import EncoderConfig
+
+    rng = np.random.default_rng(len(case))
+    N, F, C, level, dtype, zero = 4096, 16, 1, 5, np.uint16, 32768
+    numbers = np.arange(100, 100 + F)
+    if case == "level8_stereo":
+        C, level, dtype, zero = 2, 8, np.int16, 0
+    elif case == "partial":
+        F, numbers = 5, np.arange(16, 21)
+    elif case == "tile_batch":
+        numbers = np.tile(np.arange(4), 4)
+    t = np.arange(F * N)
+    base = 6000 * np.sin(t / 500.0) + np.cumsum(rng.integers(-9, 10, t.size))
+    x = np.stack([base * (0.9 + 0.1 * c) + rng.normal(0, 5, t.size) for c in range(C)], 1)
+    x = x.reshape(F, N, C)
+    x[1] = 77                                             # a constant frame
+    x[2, :, 0] = rng.integers(-20000, 20000, N)           # a noise frame
+    x = np.clip(x + zero, np.iinfo(dtype).min, np.iinfo(dtype).max).astype(dtype)
+    layout = _frame_layout(N, 16, 44100, C, EncoderConfig.from_level(level))
+    return x, numbers, layout, zero
+
+
+@pytest.mark.parametrize("case", ["level5_mono", "level8_stereo", "partial", "tile_batch"])
+def test_chunk_graph_replay_equals_eager_plan_and_emit(cuda, case):
+    """A captured chunk replays to the words, frame bits, subframe bits and
+    err flag of an eager plan_and_emit of the same chunk (tolerance 0),
+    also after a replay of other samples; N replays add N times the
+    captured launches to the kernels' counters."""
+    from flac_raster_tpu_torch.codec import chunk_graph
+    from flac_raster_tpu_torch.ops import device_emit
+
+    x, numbers, layout, zero = _graph_case(case)
+    F, N, C = x.shape
+    n_words = device_emit.worst_case_words(F, C, N, 16 + layout["mid_side"])
+    rows = _card_tensor(x, cuda)
+    nums = torch.from_numpy(numbers).to(cuda)
+    want = device_emit.plan_and_emit(rows.permute(0, 2, 1), nums, n_words=n_words,
+                                     zero_point=zero, **layout)
+    graph = chunk_graph.chunk_graph(cuda, F, C, N, rows.dtype, n_words, zero, layout)
+    assert graph.rice_launches > 0 and graph.pack_launches.get("v1", 0) > 0
+    assert graph.pack_launches.get(device_emit.SAMPLE_PACK_VERSION, 0) > 0
+    other = rows.flip(0)
+    for src in (other, rows):                 # the last replay must see `rows` alone
+        graph.x.copy_(src.view(graph.x.dtype))
+        graph.numbers.copy_(nums)
+        graph.replay()
+    torch.cuda.synchronize()
+    frame_bits, err, subs = chunk_graph.split_head(graph.head.cpu().numpy(), F, C)
+    assert torch.equal(graph.words, want["words"])
+    assert np.array_equal(frame_bits, want["frame_bits"].cpu().numpy())
+    assert np.array_equal(subs, want["subframe_bits"].cpu().numpy())
+    assert err == int(want["err"].item()) == 0
+    assert chunk_graph.chunk_graph(cuda, F, C, N, rows.dtype, n_words, zero, layout) is graph
+    rice0, packs0 = rice_cost.LAUNCHES, dict(pack.LAUNCHES)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert rice_cost.LAUNCHES - rice0 == 3 * graph.rice_launches
+    for v, n in pack.LAUNCHES.items():
+        assert n - packs0[v] == 3 * graph.pack_launches.get(v, 0), v
+
+
+def test_chunk_graph_cache_is_bounded_and_warm_encodes_capture_nothing(cuda):
+    """A warm encode captures no graph; the cache holds at most CACHE_SIZE
+    graphs, and an evicted shape is captured again on its next use."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.codec import chunk_graph
+
+    x = (np.arange(7 * 4096 + 5) % 3001).astype(np.int16)
+    kw = dict(compression_level=2, plan_chunk_frames=3, device=cuda)
+    first = encode_flac_device(x, 44100, 16, **kw)
+    n = len(chunk_graph.CAPTURES)
+    assert encode_flac_device(x, 44100, 16, **kw) == first
+    assert len(chunk_graph.CAPTURES) == n
+    for chunk in range(4, 4 + chunk_graph.CACHE_SIZE):
+        encode_flac_device(x, 44100, 16, **dict(kw, plan_chunk_frames=chunk))
+    assert len(chunk_graph._CACHE) <= chunk_graph.CACHE_SIZE
+    n = len(chunk_graph.CAPTURES)
+    assert encode_flac_device(x, 44100, 16, **kw) == first
+    assert len(chunk_graph.CAPTURES) > n

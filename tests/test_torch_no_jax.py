@@ -2,6 +2,7 @@
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -79,3 +80,73 @@ def test_no_source_file_imports_jax_or_the_jax_package():
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flac_raster_tpu"), f"{f}: imports {mod}"
+
+
+_JAX_FILE = re.compile(r"(^|/)flac_raster_tpu/[\w./-]*\.(py|cpp|cc|c|h|so|json)$")
+_PATH_CALLS = {"Path", "PurePath", "open", "join", "joinpath", "read_text", "read_bytes"}
+
+
+def _docstrings(tree):
+    """The string statements (docstrings and bare strings): prose, not paths."""
+    return {id(n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant)
+            and isinstance(n.value.value, str)}
+
+
+def _names_jax_package(value) -> bool:
+    return isinstance(value, str) and (value.strip("/") == "flac_raster_tpu"
+                                       or value.startswith("flac_raster_tpu/")
+                                       or "/flac_raster_tpu/" in value)
+
+
+def _jax_path_reads(source: str) -> list[str]:
+    """Where a source names a path under the JAX package: a string literal
+    that is a file of it, a ``Path``/``open``/``join`` call or a ``/`` join
+    with a literal naming it."""
+    tree = ast.parse(source)
+    prose = _docstrings(tree)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and id(node) not in prose:
+            if isinstance(node.value, str) and _JAX_FILE.search(node.value):
+                found.append(f"line {node.lineno}: {node.value!r}")
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            for side in (node.left, node.right):
+                if isinstance(side, ast.Constant) and _names_jax_package(side.value):
+                    found.append(f"line {node.lineno}: / {side.value!r}")
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.id if isinstance(fn, ast.Name) else getattr(fn, "attr", "")
+            if name in _PATH_CALLS:
+                for arg in [*node.args, *(k.value for k in node.keywords)]:
+                    for sub in ast.walk(arg):
+                        if isinstance(sub, ast.Constant) and _names_jax_package(sub.value):
+                            found.append(f"line {node.lineno}: {name}({sub.value!r})")
+    return found
+
+
+def test_path_check_flags_a_read_of_the_jax_package():
+    """The check below finds the ways a source could reach a JAX package
+    file, and passes a docstring or a ``file:line`` reference."""
+    reads = [
+        'SRC = Path(__file__).resolve().parent.parent / "flac_raster_tpu" / "native"',
+        'lib = os.path.join(ROOT, "flac_raster_tpu", "native", "bitpack.cpp")',
+        'text = open("flac_raster_tpu/ops/crc.py").read()',
+        'SRC = "flac_raster_tpu/native/plan.cpp"',
+        'p = ROOT.joinpath("flac_raster_tpu/native")',
+    ]
+    for line in reads:
+        assert _jax_path_reads(line), line
+    prose = ('"""Copied from ``flac_raster_tpu/native/bitpack.cpp``."""\n'
+             'REPLACES = "flac_raster_tpu/ops/pallas_pack.py:372"\n')
+    assert _jax_path_reads(prose) == []
+
+
+def test_no_source_file_reads_a_path_of_the_jax_package():
+    """The port keeps its own copy of what it needs (its host C runtime
+    is ``csrc/host/bitpack.cpp``): no source of it, and nothing in
+    chip_smoke.py, names a file under ``flac_raster_tpu/`` to read."""
+    files = [f for f in sorted(PORT.rglob("*.py")) if "_build" not in f.parts]
+    files.append(ROOT / "chip_smoke.py")
+    bad = {str(f.relative_to(ROOT)): r for f in files if (r := _jax_path_reads(f.read_text()))}
+    assert bad == {}
