@@ -158,6 +158,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1621,19 +1622,22 @@ def cli_phase(band: np.ndarray, work: Path, card: str, dev) -> None:
         logging.getLogger("flac_raster_tpu_torch").setLevel(logging.NOTSET)
 
 
-GRAPH_PARTIAL_FRAMES = 761   # the 10980x10980 band's last chunk (29 433 = 14 x 2048 + 761)
+GRAPH_PARTIAL_FRAMES = 761   # a partial chunk; the encoder runs it in the graph of 1024
 
 
 def graph_phase(scene: np.ndarray, dev, card: str) -> None:
     """Phase 22: the chunk graphs (``codec/chunk_graph``) on the 8192x8192
     scene: a replay of each shape equals an eager ``plan_and_emit`` of the
     same chunk (tolerance 0) and adds its captured launches, for a level-5
-    chunk, a partial chunk, a level-8 mid-side chunk (the scene and a
-    correlated second band) and a batch of 512x512 tiles' frames; the
-    graphs' host enqueue and CUDA-event time beside eager's; then a warm
-    encode (no capture) with the peak of device memory, timed three times
-    and once under the profiler (busy share), and every capture's time and
-    pool memory."""
+    chunk, a partial chunk in the power-of-two graph the encoder runs it
+    in, a level-8 mid-side chunk (the scene and a correlated second band)
+    and a batch of 512x512 tiles' frames; the graphs' host enqueue and
+    CUDA-event time beside eager's; then a warm encode (no capture) with
+    the peak of device memory and the memory reserved, timed three times
+    and once under the profiler (busy share); four encodes of the scene
+    and of its rows reversed on four threads at once, each equal to its
+    encode alone; every capture's time and pool memory; and the memory
+    reserved after ``chunk_graph.clear()``."""
     import torch
 
     from flac_raster_tpu_torch import RasterFLACConverter
@@ -1655,21 +1659,23 @@ def graph_phase(scene: np.ndarray, dev, card: str) -> None:
     cases = [
         ("level-5 chunk", frames[:F], np.arange(F), l5),
         ("partial chunk", frames[F : F + GRAPH_PARTIAL_FRAMES],
-         np.arange(F, F + GRAPH_PARTIAL_FRAMES), l5),
+         np.arange(F, F + GRAPH_PARTIAL_FRAMES), l5),       # in the graph of 1024
         ("level-8 mid-side chunk", pair, np.arange(F),
          _frame_layout(N, 16, 44100, 2, EncoderConfig.from_level(STEREO_LEVEL))),
         (f"{tiles.shape[0] * tiles.shape[1]} tiles' frames", tiles.reshape(-1, N, 1),
          np.tile(np.arange(per_tile), tiles.shape[0] * tiles.shape[1]), l5),
     ]
     for label, rows, numbers, layout in cases:
-        graph = check_chunk_graph(rows, numbers, layout, 1 << 15, dev)
+        graph = check_chunk_graph(rows, numbers, layout, 1 << 15, dev,
+                                  frames=min(1 << (len(rows) - 1).bit_length(), F))
         x = card_rows(rows, dev).permute(0, 2, 1)
         nums = torch.from_numpy(numbers).to(dev)
         eager_ms, eager_host = events_and_host_ms(
             lambda: device_emit.plan_and_emit(x, nums, n_words=graph.n_words, zero_point=1 << 15,
                                               **layout), 3)
         graph_ms, graph_host = events_and_host_ms(graph.replay, 10)
-        log(f"  {label} {tuple(rows.shape)}: replay equal to eager plan_and_emit (tolerance 0), "
+        log(f"  {label} {tuple(rows.shape)} in a graph of {len(graph.numbers)} frames: replay "
+            f"equal to eager plan_and_emit (tolerance 0), "
             f"launches a replay K1 {graph.rice_launches}, packs {graph.pack_launches}; capture "
             f"{graph.capture_s:.3f} s, pool {graph.pool_bytes / 1e9:.3f} GB; events / host "
             f"enqueue ms: replay {graph_ms:.3f} / {graph_host:.3f}, eager {eager_ms:.3f} / "
@@ -1689,11 +1695,27 @@ def graph_phase(scene: np.ndarray, dev, card: str) -> None:
     if len(chunk_graph.CAPTURES) != captures:
         raise AssertionError("a warm encode captured a graph again")
     rates = ", ".join(f"{scene.nbytes / t / 1e6:.2f}" for t in times)
-    log(f"  warm level-5 encode, MD5 off: {rates} MB/s, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches "
-        f"{launches}, no capture | {card}")
+    pools = sum(g.pool_bytes for g in chunk_graph._CACHE.values())
+    log(f"  warm level-5 encode, MD5 off: {rates} MB/s, peak device memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB ({len(chunk_graph._CACHE)} cached graphs' "
+        f"pools {pools / 1e9:.3f} GB), launches {launches}, no capture | {card}")
     profile_encode(conv, scene)
+    flipped = np.ascontiguousarray(scene[::-1])
+    alone = [conv.encode_array(r, compression_level=LEVEL) for r in (scene, flipped)]
+    jobs = [0, 1, 0, 1]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        got = list(pool.map(lambda k: conv.encode_array((scene, flipped)[k],
+                                                        compression_level=LEVEL), jobs))
+    if got != [alone[k] for k in jobs]:
+        raise AssertionError("encodes of one shape on several threads mixed their chunks")
+    log("  four encodes of one shape on four threads at once: each equal to its encode alone")
     for c in chunk_graph.CAPTURES:
         log(f"  capture {c}")
+    chunk_graph.clear()
+    torch.cuda.empty_cache()
+    log(f"  after chunk_graph.clear() and empty_cache(): reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB")
 
 
 def main() -> int:

@@ -23,15 +23,29 @@ fails raises; nothing falls back to eager launches.
 The kernels' launch counters (``ops/rice_cost.LAUNCHES``,
 ``ops/pack.LAUNCHES``) move where a wrapper launches, and a wrapper called
 inside a capture launches nothing: its counts are taken back out at the
-end of the capture and kept on the graph, and every replay adds them.
+end of the capture and kept on the graph, and every replay adds them (a
+capture and the replays' additions hold one lock, so a replay on another
+thread is neither lost nor counted into the capture).
 
-At most ``CACHE_SIZE`` graphs are kept, the least recently used dropped
-first, so a warm encode captures nothing.  ``CAPTURES`` records each
-capture: its time and the memory its private pool reserved.
+A graph's buffers are shared by every caller of its shape, so a use of it
+-- the copy into ``x`` and ``numbers``, the replay and the enqueue of the
+outputs' copy out -- holds its ``lock``, and the next use's stream waits
+for the last one's copy out (:meth:`ChunkGraph.use`): encodes of one shape
+on several threads stay apart.
+
+At most ``CACHE_SIZE`` graphs are kept, holding at most ``CACHE_BYTES`` of
+pool memory between them (the newest graph is kept whatever its size), the
+least recently used dropped first, so a warm encode captures nothing.  A
+graph's private pool is not the caching allocator's: :func:`clear` drops
+every graph, and ``torch.cuda.empty_cache()`` then returns the pools to the
+card.  ``CAPTURES`` records each capture: its time and the memory its pool
+reserved.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from collections import OrderedDict
 
@@ -40,14 +54,22 @@ import torch
 
 from ..ops import device_emit, pack, rice_cost
 
-__all__ = ["ChunkGraph", "chunk_graph", "emit_chunk", "split_head", "CACHE_SIZE", "CAPTURES"]
+__all__ = ["ChunkGraph", "chunk_graph", "clear", "emit_chunk", "split_head", "CACHE_SIZE",
+           "CACHE_BYTES", "CAPTURES", "SIGNED_VIEWS"]
 
-CACHE_SIZE = 4              # graphs kept across calls (each holds its pool)
+# graphs kept across calls: one layout's padded shapes are 2048, 1024, ...,
+# 1 frames, and rasters of mixed sizes may span two sample-rate codes
+CACHE_SIZE = 16
+# pool bytes kept across calls: a level-8 mid-side 2048-frame graph holds
+# 5.8 GB, a level-5 mono one 1.2 GB, a 64-frame one 0.06 GB
+CACHE_BYTES = 16 << 30
 CAPTURES: list[dict] = []   # one entry per capture since import
 _CACHE: OrderedDict = OrderedDict()
-# sample dtypes that travel (and sit in the static input) as their signed
-# views, so that no copy kernel needs the unsigned type
-_TRANSPORT = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+_CACHE_LOCK = threading.Lock()
+_COUNTS_LOCK = threading.Lock()
+# tensors whose values travel (and sit in a graph's static input) as the
+# signed type of their width, so that no copy kernel needs the unsigned type
+SIGNED_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 
 
 def emit_chunk(x: torch.Tensor, frame_numbers: torch.Tensor, n_words: int, zero_point: int,
@@ -80,16 +102,19 @@ def _set_launch_counts(rice: int, packs: dict) -> None:
 class ChunkGraph:
     """One captured ``emit_chunk`` for a chunk shape on one card.
 
-    Copy a chunk's (F, N, C) samples into ``x`` (of ``dtype``'s transport
-    type) and its frame numbers into ``numbers`` on the current stream,
-    then :meth:`replay`; ``words`` and ``head`` hold its outputs until the
-    next replay.
+    Inside :meth:`use`, copy a chunk's (F, N, C) samples into ``x`` (of
+    ``dtype``'s signed view, ``SIGNED_VIEWS``) and its frame numbers into
+    ``numbers`` on the current stream, :meth:`replay`, and enqueue the
+    copies of ``words`` and ``head``, which hold its outputs until the next
+    replay.
     """
 
     def __init__(self, dev: torch.device, F: int, C: int, N: int, dtype: torch.dtype,
                  n_words: int, zero_point: int, layout: dict):
         self.n_words = n_words
-        transport = _TRANSPORT.get(dtype, dtype)
+        self.lock = threading.Lock()
+        self.released = None         # the event after the last use's copy out
+        transport = SIGNED_VIEWS.get(dtype, dtype)
         self.x = torch.zeros((F, N, C), dtype=transport, device=dev)
         self.numbers = torch.zeros(F, dtype=torch.int64, device=dev)
         samples = self.x if transport == dtype else self.x.view(dtype)
@@ -108,14 +133,15 @@ class ChunkGraph:
             run()                         # warm-up: builds, loads, fills the caches
             stream.synchronize()
             reserved = torch.cuda.memory_reserved(dev)
-            counts = _launch_counts()
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.words, self.head = run()
-            finally:
-                self.graph.capture_end()
-                captured = _launch_counts()
-                _set_launch_counts(*counts)   # the capture launched nothing
+            with _COUNTS_LOCK:
+                counts = _launch_counts()
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.words, self.head = run()
+                finally:
+                    self.graph.capture_end()
+                    captured = _launch_counts()
+                    _set_launch_counts(*counts)   # the capture launched nothing
         # launches of each kernel that one replay makes
         self.rice_launches = captured[0] - counts[0]
         self.pack_launches = {v: n - counts[1][v] for v, n in captured[1].items()
@@ -127,12 +153,26 @@ class ChunkGraph:
                          "bps": layout["bps"], "mid_side": layout["mid_side"],
                          "capture_s": self.capture_s, "pool_bytes": self.pool_bytes})
 
+    @contextlib.contextmanager
+    def use(self):
+        """Hold the graph's buffers for one chunk: the current stream first
+        waits for the last use's copy out, and an event recorded on it at
+        the end (after this use's copy out is enqueued) frees them."""
+        stream = torch.cuda.current_stream(self.x.device)
+        with self.lock:
+            if self.released is not None:
+                stream.wait_event(self.released)
+            yield self
+            self.released = torch.cuda.Event()
+            self.released.record(stream)
+
     def replay(self) -> None:
         """Launch the captured chunk on the current stream."""
         self.graph.replay()
-        rice_cost.LAUNCHES += self.rice_launches
-        for v, n in self.pack_launches.items():
-            pack.LAUNCHES[v] += n
+        with _COUNTS_LOCK:
+            rice_cost.LAUNCHES += self.rice_launches
+            for v, n in self.pack_launches.items():
+                pack.LAUNCHES[v] += n
 
 
 def chunk_graph(dev: torch.device, F: int, C: int, N: int, dtype: torch.dtype, n_words: int,
@@ -141,10 +181,21 @@ def chunk_graph(dev: torch.device, F: int, C: int, N: int, dtype: torch.dtype, n
     use (``dev`` a CUDA device with its index)."""
     key = (dev, F, C, N, dtype, n_words, zero_point, tuple(sorted(layout.items())),
            device_emit.SAMPLE_PACK_VERSION)
-    graph = _CACHE.pop(key, None)
-    if graph is None:
-        while len(_CACHE) >= CACHE_SIZE:
-            _CACHE.popitem(last=False)    # its pool goes back to the allocator
-        graph = ChunkGraph(dev, F, C, N, dtype, n_words, zero_point, layout)
-    _CACHE[key] = graph
+    with _CACHE_LOCK:
+        graph = _CACHE.pop(key, None)
+        if graph is None:
+            graph = ChunkGraph(dev, F, C, N, dtype, n_words, zero_point, layout)
+        _CACHE[key] = graph
+        # a dropped graph's pool goes back to the allocator once no encode
+        # holds the graph
+        while len(_CACHE) > 1 and (len(_CACHE) > CACHE_SIZE or sum(
+                g.pool_bytes for g in _CACHE.values()) > CACHE_BYTES):
+            _CACHE.popitem(last=False)
     return graph
+
+
+def clear() -> None:
+    """Drop every cached graph (their pools go back to the caching
+    allocator once no encode holds them)."""
+    with _CACHE_LOCK:
+        _CACHE.clear()

@@ -32,7 +32,9 @@ JAX encoder's does: chunk i is dispatched before chunk i - 1 is drained;
 host rows go up from pinned, double-buffered memory on a copy stream while
 the previous chunk computes; each chunk's outputs come back into pinned,
 double-buffered memory; and the drain (err flag, byteswap, CRC patch) runs
-on worker threads.  On the CPU the same loop runs each chunk eagerly.
+on a worker thread.  A partial chunk is padded with zero frames to a power
+of two, as the JAX loop pads it, so few shapes are captured.  On the CPU
+the same loop runs each chunk eagerly, unpadded.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_heade
 from ..ops.device_emit import worst_case_words
 from ..ops.stereo import midside_ok
 from . import chunk_graph, host_encoder
+from .chunk_graph import SIGNED_VIEWS
 from .decoder import md5_of_samples
 from .encoder import (
     _BPS_CODES,
@@ -67,10 +70,8 @@ logger = logging.getLogger("flac_raster_tpu_torch.device_encoder")
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
 PLAN_CHUNK_FRAMES = 2048   # frames a chunk of the encoder's loop, by default
 # the drain's worker threads, and the host output slots they need: chunk i
-# reuses the slot of chunk i - DRAIN_SLOTS, whose drain must have ended; one
-# drain of a 2048-frame level-5 chunk (byteswap, CRC, copy) takes about as
-# long as the card's compute of it, so one thread would hold the card back
-DRAIN_THREADS = 2
+# reuses the slot of chunk i - DRAIN_SLOTS, whose drain must have ended
+DRAIN_THREADS = 1
 DRAIN_SLOTS = DRAIN_THREADS + 1
 
 
@@ -95,10 +96,6 @@ def device_scope(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-# tensors whose values travel as the signed type of their width
-_SIGNED_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
-
-
 def np_dtype(t: torch.Tensor) -> np.dtype:
     """The numpy dtype of a tensor's elements."""
     return np.dtype(str(t.dtype).removeprefix("torch."))
@@ -107,7 +104,7 @@ def np_dtype(t: torch.Tensor) -> np.dtype:
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A tensor's values as a numpy array of the same dtype (uint16 and
     uint32 through their signed views, which every PyTorch build copies)."""
-    signed = _SIGNED_VIEWS.get(t.dtype)
+    signed = SIGNED_VIEWS.get(t.dtype)
     if signed is None:
         return t.cpu().numpy()
     return t.view(signed).cpu().numpy().view(np_dtype(t))
@@ -116,7 +113,7 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 def as_int64(t: torch.Tensor) -> torch.Tensor:
     """A tensor's integer values as int64 (unsigned types through their
     signed views)."""
-    signed = _SIGNED_VIEWS.get(t.dtype)
+    signed = SIGNED_VIEWS.get(t.dtype)
     if signed is None:
         return t.long()
     return t.view(signed).long() & ((1 << (8 * t.element_size())) - 1)
@@ -224,7 +221,7 @@ class _HostChunks:
         words, head = chunk_graph.emit_chunk(rows.permute(0, 2, 1), self.numbers[g0:g1],
                                              self.n_words_of(g1 - g0), self.zero_point,
                                              self.layout)
-        return None, words, head
+        return None, words, head, g1 - g0
 
 
 class _CardChunks:
@@ -234,6 +231,8 @@ class _CardChunks:
     chunk computes, and each chunk's outputs copied back into one of
     ``DRAIN_SLOTS`` pinned buffers on the compute stream right after its
     replay (stream order keeps the next replay from overwriting them first).
+    A chunk of F frames runs in the graph of ``padded(F)`` frames: its
+    frames first, then zero frames, whose outputs the drain leaves out.
 
     The words come back at their worst-case length (``n_words``): the used
     prefix is known only from the frame bits, and waiting for those would
@@ -242,11 +241,12 @@ class _CardChunks:
     """
 
     def __init__(self, frames_of, bounds, numbers: torch.Tensor, n_words_of, zero_point: int,
-                 layout: dict, dtype: torch.dtype, channels: int, dev: torch.device):
+                 layout: dict, dtype: torch.dtype, channels: int, dev: torch.device, chunk: int):
         self.frames_of, self.bounds, self.numbers = frames_of, bounds, numbers
+        self.chunk = chunk
         N = layout["blocksize"]
         self.graphs = {}
-        for F in sorted({g1 - g0 for g0, g1 in bounds}, reverse=True):
+        for F in sorted({self.padded(g1 - g0) for g0, g1 in bounds}, reverse=True):
             with record_function("frtt.capture"):
                 self.graphs[F] = chunk_graph.chunk_graph(dev, F, channels, N, dtype,
                                                          n_words_of(F), zero_point, layout)
@@ -261,6 +261,11 @@ class _CardChunks:
         self.pinned_out = [(torch.empty(big.n_words, dtype=torch.int32, pin_memory=True),
                             torch.empty(big.head.numel(), dtype=torch.int64, pin_memory=True))
                            for _ in range(DRAIN_SLOTS)]
+
+    def padded(self, F: int) -> int:
+        """The frames of the graph that runs a chunk of F: the next power
+        of two, at most the full chunk (the JAX loop's ``f_pad``)."""
+        return min(1 << (F - 1).bit_length(), self.chunk)
 
     def stage(self, i: int) -> None:
         """Upload chunk i's host rows on the copy stream (a device tensor
@@ -292,26 +297,32 @@ class _CardChunks:
     def dispatch(self, i: int):
         """Copy chunk i into its graph's input, replay, and enqueue the
         copy of its outputs to the host; returns (the copy's event, the
-        pinned words, the pinned head)."""
+        pinned words, the pinned head, the graph's frames)."""
         g0, g1 = self.bounds[i]
-        graph = self.graphs[g1 - g0]
+        F, padded = g1 - g0, self.padded(g1 - g0)
+        graph = self.graphs[padded]
         staged = self.staged[i % 2]
-        if isinstance(staged, torch.Tensor):     # rows already on the card
-            graph.x.copy_(staged.view(graph.x.dtype))
-        else:
-            self.stream.wait_event(staged)
-            graph.x.view(-1).copy_(self.dev_in.view(-1)[: graph.x.numel()])
-            self.consumed = torch.cuda.Event()
-            self.consumed.record(self.stream)
-        graph.numbers.copy_(self.numbers[g0:g1])
-        graph.replay()
-        words, head = self.pinned_out[i % DRAIN_SLOTS]
-        words, head = words[: graph.n_words], head[: graph.head.numel()]
-        words.copy_(graph.words, non_blocking=True)
-        head.copy_(graph.head, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(self.stream)
-        return done, words, head
+        with graph.use():
+            if isinstance(staged, torch.Tensor):     # rows already on the card
+                graph.x[:F].copy_(staged.view(graph.x.dtype))
+            else:
+                self.stream.wait_event(staged)
+                n = graph.x[:F].numel()
+                graph.x.view(-1)[:n].copy_(self.dev_in.view(-1)[:n])
+                self.consumed = torch.cuda.Event()
+                self.consumed.record(self.stream)
+            if F < padded:
+                graph.x[F:].zero_()
+                graph.numbers[F:].zero_()
+            graph.numbers[:F].copy_(self.numbers[g0:g1])
+            graph.replay()
+            words, head = self.pinned_out[i % DRAIN_SLOTS]
+            words, head = words[: graph.n_words], head[: graph.head.numel()]
+            words.copy_(graph.words, non_blocking=True)
+            head.copy_(graph.head, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return done, words, head, padded
 
 
 def _drain(span: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail_bits: int):
@@ -319,11 +330,12 @@ def _drain(span: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail_b
     of the chunk of frames ``span`` = (g0, g1), from its dispatched
     outputs (on the drain's worker thread)."""
     g0, g1 = span
-    done, words_t, head_t = out
+    done, words_t, head_t, padded = out
     with record_function("frtt.readback"):       # waits for the chunk's compute
         if done is not None:
             done.synchronize()
-        frame_bits, err, subs = chunk_graph.split_head(head_t.numpy(), g1 - g0, channels)
+        frame_bits, err, subs = chunk_graph.split_head(head_t.numpy(), padded, channels)
+        frame_bits, subs = frame_bits[: g1 - g0], subs[: g1 - g0]
     if err:
         raise RuntimeError(
             f"frames {g0}..{g1 - 1}: the sample stream broke the precondition "
@@ -352,8 +364,8 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
     One chunk is in flight, as in the JAX encoder's loop: chunk i is
     dispatched before chunk i - 1 is drained, and the drain (the wait for
     the chunk's outputs, the err flag, the byteswap and the CRC patch)
-    runs on a worker thread (one of ``DRAIN_THREADS``) while the card
-    computes the next chunk.  A chunk's err flag raises with its own
+    runs on a worker thread (``DRAIN_THREADS``) while the card computes
+    the next chunk.  A chunk's err flag raises with its own
     frames; an error on a worker raises here as itself, and the workers
     are joined before it does.
     """
@@ -378,7 +390,7 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
         try:
             if dev.type == "cuda":
                 chunks = _CardChunks(frames_of, bounds, numbers, n_words_of, zero_point, layout,
-                                     dtype, channels, dev)
+                                     dtype, channels, dev, chunk)
             else:
                 chunks = _HostChunks(frames_of, bounds, numbers, n_words_of, zero_point, layout)
             with record_function("frtt.upload"):

@@ -48,8 +48,8 @@ from .codec.decoder import (
     md5_of_samples,
 )
 from .codec.device_decoder import decode_flac_device
+from .codec.chunk_graph import SIGNED_VIEWS
 from .codec.device_encoder import (
-    _SIGNED_VIEWS,
     as_int64,
     encode_flac_batch_device,
     encode_flac_device,
@@ -390,7 +390,7 @@ class RasterFLACConverter:
             data_min=stats[0], data_max=stats[1], original_dtype=str(dt),
             bits_per_sample=bps, scale_factor=1, mode=mode, zero_point=zero,
         )
-        signed = _SIGNED_VIEWS.get(data.dtype)
+        signed = SIGNED_VIEWS.get(data.dtype)
         with timer.stage("device_interleave", nbytes):   # the timer syncs the device
             rows = (data if signed is None else data.view(signed)).permute(1, 2, 0)
             rows = rows.reshape(height * width, count)

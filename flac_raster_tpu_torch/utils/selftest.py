@@ -401,34 +401,49 @@ KERNELS = ("rice_cost_sums", "pack_tokens", "pack_tokens_v2", "pack_tokens_v3",
 
 def card_rows(rows: np.ndarray, dev) -> torch.Tensor:
     """Host integer rows as a tensor of their dtype on ``dev`` (unsigned
-    types through their signed views)."""
-    signed = {np.dtype(np.uint16): (np.int16, torch.uint16),
-              np.dtype(np.uint32): (np.int32, torch.uint32)}.get(rows.dtype)
-    if signed is None:
-        return torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
-    return torch.from_numpy(np.ascontiguousarray(rows).view(signed[0])).to(dev).view(signed[1])
+    types through their signed views, ``chunk_graph.SIGNED_VIEWS``)."""
+    from ..codec.chunk_graph import SIGNED_VIEWS
+
+    rows = np.ascontiguousarray(rows)
+    dtype = getattr(torch, rows.dtype.name)
+    if dtype not in SIGNED_VIEWS:
+        return torch.from_numpy(rows).to(dev)
+    return torch.from_numpy(rows.view(f"i{rows.itemsize}")).to(dev).view(dtype)
 
 
 def check_chunk_graph(rows: np.ndarray, numbers: np.ndarray, layout: dict, zero_point: int,
-                      dev, replays: int = 3) -> dict:
+                      dev, replays: int = 3, frames: int | None = None):
     """A chunk's CUDA graph (``codec/chunk_graph``) against an eager
-    ``plan_and_emit`` of the same (F, N, C) rows and frame numbers: the
-    last of ``replays`` replays gives the same words, frame bits, subframe
-    bits and err flag (tolerance 0), and the replays add ``replays`` times
-    the captured launches to the kernels' counters.  Returns the graph."""
+    ``plan_and_emit`` of the same (F, N, C) rows and frame numbers.  The
+    graph has ``frames`` (F by default; the encoder runs a partial chunk in
+    the graph of the next power of two, zero frames after its own).  After
+    one replay of other samples (the rows reversed), the last of
+    ``replays`` replays of the rows gives the chunk's frame bits, subframe
+    bits, err flag and stream bytes (and, with no zero frames, every word)
+    as eager does, tolerance 0, and the replays add ``replays`` times the
+    captured launches to the kernels' counters.  Returns the graph."""
     from ..codec import chunk_graph
     from ..ops import device_emit, pack, rice_cost
 
     F, _, C = rows.shape
+    frames = frames or F
     x = card_rows(rows, dev)
     nums = torch.from_numpy(np.asarray(numbers, np.int64)).to(dev)
-    n_words = device_emit.worst_case_words(F, C, N, layout["bps"] + layout["mid_side"])
-    want = device_emit.plan_and_emit(x.permute(0, 2, 1), nums, n_words=n_words,
+    bps = layout["bps"] + layout["mid_side"]
+    want = device_emit.plan_and_emit(x.permute(0, 2, 1), nums,
+                                     n_words=device_emit.worst_case_words(F, C, N, bps),
                                      zero_point=zero_point, **layout)
-    graph = chunk_graph.chunk_graph(torch.device(dev), F, C, N, x.dtype, n_words, zero_point,
+    graph = chunk_graph.chunk_graph(torch.device(dev), frames, C, N, x.dtype,
+                                    device_emit.worst_case_words(frames, C, N, bps), zero_point,
                                     layout)
-    graph.x.copy_(x.view(graph.x.dtype))
-    graph.numbers.copy_(nums)
+    for src in (x.flip(0), x):
+        with graph.use():
+            graph.x.zero_()
+            graph.x[:F].copy_(src.view(graph.x.dtype))
+            graph.numbers.zero_()
+            graph.numbers[:F].copy_(nums)
+            if src is not x:
+                graph.replay()
     rice0, packs0 = rice_cost.LAUNCHES, dict(pack.LAUNCHES)
     for _ in range(replays):
         graph.replay()
@@ -438,13 +453,20 @@ def check_chunk_graph(rows: np.ndarray, numbers: np.ndarray, layout: dict, zero_
             for v, n in pack.LAUNCHES.items()):
         raise AssertionError("a graph's replays moved the launch counts by other than the "
                              "captured launches")
-    frame_bits, err, subs = chunk_graph.split_head(graph.head.cpu().numpy(), F, C)
-    if not (torch.equal(graph.words, want["words"])
-            and np.array_equal(frame_bits, want["frame_bits"].cpu().numpy())
-            and np.array_equal(subs, want["subframe_bits"].cpu().numpy())
-            and err == int(want["err"].item())):
-        raise AssertionError(f"the graph of a ({F}, {N}, {C}) chunk differs from eager "
-                             "plan_and_emit")
+    frame_bits, err, subs = chunk_graph.split_head(graph.head.cpu().numpy(), frames, C)
+    want_bits = want["frame_bits"].cpu().numpy()
+    n_bytes = int(want_bits.sum()) // 8
+
+    def stream(words):
+        return words.cpu().numpy().view(np.uint32).astype(">u4").view(np.uint8)[:n_bytes]
+
+    if not (np.array_equal(frame_bits[:F], want_bits)
+            and np.array_equal(subs[:F], want["subframe_bits"].cpu().numpy())
+            and err == int(want["err"].item())
+            and np.array_equal(stream(graph.words), stream(want["words"]))
+            and (frames > F or torch.equal(graph.words, want["words"]))):
+        raise AssertionError(f"the {frames}-frame graph of a ({F}, {N}, {C}) chunk differs "
+                             "from eager plan_and_emit")
     return graph
 
 

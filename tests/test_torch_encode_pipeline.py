@@ -12,10 +12,14 @@ are the card's:
   * chunk i is dispatched before chunk i - 1's drain starts;
   * an err flag in chunk i, with chunk i + 1 already dispatched, raises
     with chunk i's frames; an exception on the worker raises in the caller
-    as itself; no worker thread outlives either.
+    as itself; no worker thread outlives either;
+  * encodes of one shape on several threads at once give each its own
+    bytes (the card's graphs of a shape are shared; the gpu file holds the
+    same test on the card).
 """
 
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,4 +153,19 @@ def test_worker_exception_surfaces_as_itself(monkeypatch):
         encode_flac_device(_samples(2), 44100, 16, device="cpu", **_kw(2, 2, 2))
     assert info.value is fault
     assert all(name.startswith("frtt-drain") for name in calls)
+    assert _drain_threads() == []
+
+
+def test_concurrent_encodes_of_one_shape_stay_apart():
+    """Four threads encode two rasters of one shape, twice each, at once:
+    every file equals that raster's encode alone."""
+    rasters = [_samples(2, seed=s) for s in (11, 12)]
+    kw = _kw(2, 3, 2)
+    alone = [encode_flac_device(x, 44100, 16, device="cpu", **kw) for x in rasters]
+    assert alone[0] != alone[1]
+    jobs = [0, 1, 0, 1]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        got = list(pool.map(lambda k: encode_flac_device(rasters[k], 44100, 16, device="cpu",
+                                                         **kw), jobs))
+    assert got == [alone[k] for k in jobs]
     assert _drain_threads() == []

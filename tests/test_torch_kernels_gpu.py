@@ -265,37 +265,52 @@ def test_pack_versions_hostile_stream(cuda, version):
 def test_stereo_tail_encode_on_card_matches_cpu(cuda, level, monkeypatch):
     """A 2-band raster with a tail frame, through mid-side, the windowed
     sample pack and the host tail: identical bytes on the card and on the
-    CPU.  At level 8 the float32 LPC stage gives way, on both, to fixed
-    integer predictors, one per apodization window (the float sums round
-    in another order on the card, and a chunk's CUDA graph cannot call
-    back to the host), so the integer pipeline and every kernel are held
-    to the CPU's bytes."""
-    from flac_raster_tpu_torch import RasterFLACConverter, decode_flac
+    CPU.  At level 8 the float32 LPC stage, whose sums round in another
+    order on the card, runs on the CPU for both: the CPU's encode records
+    its outputs call by call, and the card's encode of the same raster
+    (its full frames one chunk) is handed the same outputs, put on the
+    card before the chunk is captured (a CUDA graph cannot call back to
+    the host).  So the real quantized coefficients and shifts, the
+    integer pipeline and every kernel are held to the CPU's bytes."""
+    from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.codec import chunk_graph
     from flac_raster_tpu_torch.ops import device_codec, device_emit
 
-    taps = {"tukey(0.5)": [2, -1], "tukey(0.25)": [3, -3, 1], "welch": [1]}
-
-    def integer_stage(x, bps_e, order, precision, wname):
-        B = x.shape[0]
-        qc = torch.zeros((B, order), dtype=torch.int32, device=x.device)
-        tap = taps.get(wname, [2, -1])
-        for j, t in enumerate(tap):
-            qc[:, j] = t
-        shift = torch.zeros(B, dtype=torch.int32, device=x.device)
-        order_arr = torch.full((B,), len(tap), dtype=torch.int32, device=x.device)
-        safe = torch.ones(B, dtype=torch.bool, device=x.device)
-        return order_arr, qc, shift, safe, device_codec._lpc_residual(x, qc, shift, order)
-
-    monkeypatch.setattr(device_codec, "_lpc_analyze", integer_stage)
     rng = np.random.default_rng(level)
     t = np.arange(100 * 333)
     b0 = 30000 + 4000 * np.sin(t / 700.0) + np.cumsum(rng.integers(-9, 10, t.size))
     b1 = 0.9 * b0 + 1500 + rng.normal(0, 8, t.size)
     x = np.clip(np.stack([b0, b1]), 0, 65535).astype(np.uint16).reshape(2, 100, 333)
-    launches = dict(pack.LAUNCHES)
-    gpu = RasterFLACConverter(device="cuda").encode_array(x, compression_level=level)
-    assert pack.LAUNCHES[device_emit.SAMPLE_PACK_VERSION] > launches[device_emit.SAMPLE_PACK_VERSION]
+    float_stage = device_codec._lpc_analyze
+    recorded = []
+
+    def recording(*args):
+        recorded.append(float_stage(*args))
+        return recorded[-1]
+
+    monkeypatch.setattr(device_codec, "_lpc_analyze", recording)
     cpu = RasterFLACConverter(device="cpu").encode_array(x, compression_level=level)
+    on_card = [tuple(a.to(cuda) for a in out) for out in recorded]
+    calls = []
+
+    def replaying(blocks, *args):
+        out = on_card[len(calls) % len(on_card)]
+        calls.append(args)
+        assert blocks.shape == out[4].shape
+        return tuple(a.clone() for a in out)
+
+    monkeypatch.setattr(device_codec, "_lpc_analyze", replaying)
+    launches = dict(pack.LAUNCHES)
+    chunk_graph.clear()          # a cached graph of this shape holds its own float stage
+    try:
+        gpu = RasterFLACConverter(device="cuda").encode_array(x, compression_level=level)
+    finally:
+        chunk_graph.clear()      # this graph holds the recorded outputs
+    assert pack.LAUNCHES[device_emit.SAMPLE_PACK_VERSION] > launches[device_emit.SAMPLE_PACK_VERSION]
+    if level == 8:
+        assert len(calls) == 2 * len(recorded)    # the warm-up chunk, then the capture
+        assert max(int(out[0].max()) for out in recorded) > 3     # LPC orders
+        assert max(int(out[2].max()) for out in recorded) > 0     # quantization shifts
     assert gpu == cpu
     data, _ = RasterFLACConverter(device="cpu").decode_bytes(gpu)
     assert np.array_equal(data, x)
@@ -711,11 +726,9 @@ def test_pack_v5_unaligned_fields_and_buffer(cuda):
 def _card_tensor(data, cuda):
     """A host raster as a tensor of its dtype on the card (unsigned
     types through their signed views)."""
-    signed = {np.dtype(np.uint16): (np.int16, torch.uint16),
-              np.dtype(np.uint32): (np.int32, torch.uint32)}.get(data.dtype)
-    if signed is None:
-        return torch.from_numpy(data).to(cuda)
-    return torch.from_numpy(data.view(signed[0])).to(cuda).view(signed[1])
+    from flac_raster_tpu_torch.utils.selftest import card_rows
+
+    return card_rows(data, cuda)
 
 
 @pytest.mark.parametrize("dtype,bands", [("uint16", 1), ("uint16", 2), ("int16", 1),
@@ -965,57 +978,105 @@ def _graph_case(case):
 def test_chunk_graph_replay_equals_eager_plan_and_emit(cuda, case):
     """A captured chunk replays to the words, frame bits, subframe bits and
     err flag of an eager plan_and_emit of the same chunk (tolerance 0),
-    also after a replay of other samples; N replays add N times the
-    captured launches to the kernels' counters."""
+    also after a replay of other samples; the partial chunk of five frames
+    runs in the graph of eight, as the encoder runs it, and matches in its
+    own frames and stream bytes.  N replays add N times the captured
+    launches to the kernels' counters (``selftest.check_chunk_graph``)."""
     from flac_raster_tpu_torch.codec import chunk_graph
     from flac_raster_tpu_torch.ops import device_emit
+    from flac_raster_tpu_torch.utils.selftest import check_chunk_graph
 
     x, numbers, layout, zero = _graph_case(case)
     F, N, C = x.shape
-    n_words = device_emit.worst_case_words(F, C, N, 16 + layout["mid_side"])
-    rows = _card_tensor(x, cuda)
-    nums = torch.from_numpy(numbers).to(cuda)
-    want = device_emit.plan_and_emit(rows.permute(0, 2, 1), nums, n_words=n_words,
-                                     zero_point=zero, **layout)
-    graph = chunk_graph.chunk_graph(cuda, F, C, N, rows.dtype, n_words, zero, layout)
+    frames = 8 if case == "partial" else F
+    graph = check_chunk_graph(x, numbers, layout, zero, cuda, frames=frames)
     assert graph.rice_launches > 0 and graph.pack_launches.get("v1", 0) > 0
     assert graph.pack_launches.get(device_emit.SAMPLE_PACK_VERSION, 0) > 0
-    other = rows.flip(0)
-    for src in (other, rows):                 # the last replay must see `rows` alone
-        graph.x.copy_(src.view(graph.x.dtype))
-        graph.numbers.copy_(nums)
-        graph.replay()
-    torch.cuda.synchronize()
-    frame_bits, err, subs = chunk_graph.split_head(graph.head.cpu().numpy(), F, C)
-    assert torch.equal(graph.words, want["words"])
-    assert np.array_equal(frame_bits, want["frame_bits"].cpu().numpy())
-    assert np.array_equal(subs, want["subframe_bits"].cpu().numpy())
-    assert err == int(want["err"].item()) == 0
-    assert chunk_graph.chunk_graph(cuda, F, C, N, rows.dtype, n_words, zero, layout) is graph
-    rice0, packs0 = rice_cost.LAUNCHES, dict(pack.LAUNCHES)
-    for _ in range(3):
-        graph.replay()
-    torch.cuda.synchronize()
-    assert rice_cost.LAUNCHES - rice0 == 3 * graph.rice_launches
-    for v, n in pack.LAUNCHES.items():
-        assert n - packs0[v] == 3 * graph.pack_launches.get(v, 0), v
+    n_words = device_emit.worst_case_words(frames, C, N, 16 + layout["mid_side"])
+    dtype = getattr(torch, x.dtype.name)
+    assert chunk_graph.chunk_graph(cuda, frames, C, N, dtype, n_words, zero, layout) is graph
 
 
-def test_chunk_graph_cache_is_bounded_and_warm_encodes_capture_nothing(cuda):
+def test_chunk_graph_cache_is_bounded_and_warm_encodes_capture_nothing(cuda, monkeypatch):
     """A warm encode captures no graph; the cache holds at most CACHE_SIZE
-    graphs, and an evicted shape is captured again on its next use."""
+    graphs (two here), and an evicted shape is captured again on its next
+    use."""
     from flac_raster_tpu_torch import encode_flac_device
     from flac_raster_tpu_torch.codec import chunk_graph
 
+    monkeypatch.setattr(chunk_graph, "CACHE_SIZE", 2)
+    chunk_graph.clear()
     x = (np.arange(7 * 4096 + 5) % 3001).astype(np.int16)
     kw = dict(compression_level=2, plan_chunk_frames=3, device=cuda)
-    first = encode_flac_device(x, 44100, 16, **kw)
+    first = encode_flac_device(x, 44100, 16, **kw)        # graphs of 3 and 1 frames
     n = len(chunk_graph.CAPTURES)
     assert encode_flac_device(x, 44100, 16, **kw) == first
     assert len(chunk_graph.CAPTURES) == n
-    for chunk in range(4, 4 + chunk_graph.CACHE_SIZE):
+    for chunk in (4, 5):                                  # 4; then 5 and 2
         encode_flac_device(x, 44100, 16, **dict(kw, plan_chunk_frames=chunk))
-    assert len(chunk_graph._CACHE) <= chunk_graph.CACHE_SIZE
+    assert len(chunk_graph._CACHE) == 2
     n = len(chunk_graph.CAPTURES)
     assert encode_flac_device(x, 44100, 16, **kw) == first
-    assert len(chunk_graph.CAPTURES) > n
+    assert len(chunk_graph.CAPTURES) == n + 2
+    chunk_graph.clear()
+
+
+def _two_band(seed: int, frames: int, tail: int = 100) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames * 4096 + tail)
+    a = 6000 * np.sin(t / (300.0 + seed)) + np.cumsum(rng.integers(-9, 10, t.size))
+    x = np.stack([a, 0.8 * a + 200 + rng.normal(0, 4, t.size)], 1)
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def test_concurrent_encodes_of_one_shape_on_card_stay_apart(cuda):
+    """Eight threads encode two rasters of one shape at level 5 at once,
+    through the shared graphs of that shape: every file equals that
+    raster's encode alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flac_raster_tpu_torch import encode_flac_device
+
+    rasters = [_two_band(s, 9) for s in (1, 2)]
+    kw = dict(compression_level=5, plan_chunk_frames=3, device=cuda)
+    alone = [encode_flac_device(x, 44100, 16, **kw) for x in rasters]
+    assert alone[0] != alone[1]
+    jobs = [0, 1] * 4
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        got = list(pool.map(lambda k: encode_flac_device(rasters[k], 44100, 16, **kw), jobs))
+    assert got == [alone[k] for k in jobs]
+
+
+def test_partial_chunk_runs_in_a_power_of_two_graph(cuda):
+    """A partial last chunk of 3 frames runs in the graph of 4 (zero frames
+    after its own), as the JAX loop pads it: the bytes equal the CPU's,
+    and only graphs of 8 and 4 frames are captured."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.codec import chunk_graph
+
+    x = _two_band(3, 11)
+    kw = dict(compression_level=2, plan_chunk_frames=8)
+    chunk_graph.clear()
+    n = len(chunk_graph.CAPTURES)
+    assert (encode_flac_device(x, 44100, 16, device=cuda, **kw)
+            == encode_flac_device(x, 44100, 16, device="cpu", **kw))
+    assert sorted(c["F"] for c in chunk_graph.CAPTURES[n:]) == [4, 8]
+
+
+def test_chunk_graph_cache_is_bounded_by_pool_bytes(cuda, monkeypatch):
+    """Past CACHE_BYTES of pools the least recently used graphs go (the
+    newest stays whatever its size); clear() drops every graph."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.codec import chunk_graph
+
+    x = _two_band(4, 7)
+    kw = dict(compression_level=2, plan_chunk_frames=4, device=cuda)
+    chunk_graph.clear()
+    first = encode_flac_device(x, 44100, 16, **kw)
+    assert len(chunk_graph._CACHE) == 1                   # graphs of 4 frames only
+    monkeypatch.setattr(chunk_graph, "CACHE_BYTES", 1)
+    assert encode_flac_device(x, 44100, 16, **dict(kw, plan_chunk_frames=5)) != b""
+    assert len(chunk_graph._CACHE) == 1                   # 5, then 2: only the newest kept
+    assert encode_flac_device(x, 44100, 16, **kw) == first
+    chunk_graph.clear()
+    assert not chunk_graph._CACHE

@@ -12,17 +12,27 @@ parent commit from ``git archive``), builds its kernels, and encodes with
     of each ``frtt.*`` range of the encoder;
   * the 10980 x 10980 band at level 5, the 2 x 8192 x 8192 stereo scene
     at level 8 and the 3601 x 3601 float32 DEM at level 5 (the 32-bps
-    lane), each warmed once and timed once.
+    lane), each encoded once cold (its first encode in the process: a new
+    chunk shape is captured there) and timed once warm;
+  * rasters of mixed sizes, the first rows of the 8192 x 8192 scene at
+    eight heights whose last chunks all differ, each encoded once in
+    turn, then the eight again: the first pass pays any captures, the
+    second is warm.
 
 Every encode's bytes must equal that scene's first encode in the same
 turn, and the peak of device memory (``max_memory_allocated``) over the
-timed 8192² encodes is reported; where the tree has
+timed 8192² encodes, and the memory reserved then and at the turn's end
+(``memory_reserved``: the graphs' pools are in it), are reported; where the tree has
 ``codec/chunk_graph``, so are its captures (time and pool memory).  The
 turns run in the order A B B A (``--turns`` changes it).  The script
 prints the card and one JSON line a turn.  Run it on the card from the
 repository root::
 
     python3 tools/encode_ab.py --tree A=_archive/parent --tree B=. [--repeats 3]
+
+The first encode of the 8192 x 8192 scene in a turn (``warm_s``) is the
+process's first: it pays the first-use costs, and the captures where the
+tree has graphs.
 """
 
 from __future__ import annotations
@@ -35,6 +45,9 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve()
+# rows of the 8192 x 8192 scene: 2h frames of 4096, so last chunks of 2000,
+# 1352, 504, 56, 1656, 1208, 760 and 312 frames beside full ones of 2048
+MIXED_HEIGHTS = [1000, 1700, 2300, 3100, 3900, 4700, 5500, 6300]
 
 
 def worker(tree: Path, repeats: int) -> dict:
@@ -52,6 +65,14 @@ def worker(tree: Path, repeats: int) -> dict:
     _build.kernels()
     native.build()
     row = {"tree": str(tree), "build_s": time.perf_counter() - t0}
+    try:
+        from flac_raster_tpu_torch.codec import chunk_graph
+    except ImportError:
+        chunk_graph = None
+
+    def captures() -> int | None:
+        return None if chunk_graph is None else len(chunk_graph.CAPTURES)
+
     conv = RasterFLACConverter(device="cuda", compute_md5=False)
 
     def timed(raster, level):
@@ -74,6 +95,7 @@ def worker(tree: Path, repeats: int) -> dict:
     row["scene8192_l5_MBps"] = [mb / t for t in times]
     row["scene8192_l5_s"] = times
     row["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    row["memory_reserved_GB"] = torch.cuda.memory_reserved() / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         blob, wall = timed(scene, 5)
     averages = prof.key_averages()
@@ -85,12 +107,24 @@ def worker(tree: Path, repeats: int) -> dict:
     row["host_ranges_ms"] = {e.key: e.cpu_time_total / 1e3 for e in averages
                              if e.key.startswith("frtt.") and e.device_type.name == "CPU"}
     row["scene8192_bytes"] = len(first)
+    row["mixed_heights"] = MIXED_HEIGHTS
+    for p in ("first", "warm"):
+        total, sizes, before = 0.0, [], captures()
+        for h in MIXED_HEIGHTS:
+            blob, dt = timed(scene[:h], 5)
+            total += dt
+            sizes.append(len(blob))
+        row[f"mixed_{p}_s"] = total
+        row[f"mixed_{p}_captures"] = None if before is None else captures() - before
+        if p == "warm" and sizes != row["mixed_bytes"]:
+            raise AssertionError("a mixed-size encode changed between passes")
+        row["mixed_bytes"] = sizes
     del scene
     for name, raster, level in (("band10980_l5", lambda: make_raster(10980), 5),
                                 ("stereo8192_l8", lambda: make_stereo(8192), 8),
                                 ("dem3601_l5", lambda: make_dem(3601), 5)):
         raster = raster()
-        want, _ = timed(raster, level)
+        want, row[f"{name}_cold_s"] = timed(raster, level)
         blob, dt = timed(raster, level)
         if blob != want:
             raise AssertionError(f"the {name} encode changed between runs")
@@ -98,12 +132,8 @@ def worker(tree: Path, repeats: int) -> dict:
         row[f"{name}_bytes"] = len(blob)
         del raster
         torch.cuda.empty_cache()
-    try:
-        from flac_raster_tpu_torch.codec import chunk_graph
-    except ImportError:
-        row["captures"] = None
-    else:
-        row["captures"] = chunk_graph.CAPTURES
+    row["memory_reserved_end_GB"] = torch.cuda.memory_reserved() / 1e9
+    row["captures"] = None if chunk_graph is None else chunk_graph.CAPTURES
     return row
 
 
