@@ -28,9 +28,10 @@ is not 0:
      package's for the same scene;
   6. each decode kernel against its plain PyTorch version on the card, on
      one real 4096-frame chunk of the phase-3 file (plus a lane of random
-     words for the Rice scan): outputs must be identical; all are timed
-     with CUDA events (the Rice scan on the file's lanes, and again with
-     the hostile lane);
+     words for the Rice scan, and two frames of random words, one of them
+     verbatim, for the subframe parse and finish): outputs must be
+     identical; all are timed with CUDA events (the Rice scan on the file's
+     lanes, and again with the hostile lane);
   7. the decode path: ``RasterFLACConverter(device="cuda")
      .decode_bytes_device`` of the phase-3 file, once to warm up and once
      timed; it must stay on the device route, launch all three decode
@@ -153,6 +154,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -172,7 +174,9 @@ from flac_raster_tpu_torch.utils.selftest import (
     check_restore,
     check_rice_cost,
     check_rice_scan,
-    decode_chunk,
+    check_subframe,
+    chunk_inputs,
+    chunk_table,
     lane_headers,
     level5_chunk,
     level5_tokens,
@@ -182,6 +186,7 @@ from flac_raster_tpu_torch.utils.selftest import (
     make_stereo,
     midside_tokens,
     rice_cost_input,
+    with_hostile_frames,
     with_hostile_lane,
 )
 
@@ -334,28 +339,36 @@ def kernel_entry(name, source, replaces, max_abs_err, ms, plain_ms, bnd, library
 
 
 def counters() -> dict:
-    from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_group, rice_scan
+    from flac_raster_tpu_torch.ops import (
+        gather, pack, restore, rice_cost, rice_group, rice_scan, subframe,
+    )
 
     c = {"rice_cost_sums": rice_cost.LAUNCHES, "gather_windows": gather.LAUNCHES,
          "rice_scan_full": rice_scan.LAUNCHES, "rice_group_step": rice_group.LAUNCHES,
-         "restore": restore.LAUNCHES}
+         "restore": restore.LAUNCHES, "subframe_parse": subframe.LAUNCHES["parse"],
+         "subframe_finish": subframe.LAUNCHES["finish"]}
     c.update({PACK_NAMES[v]: n for v, n in pack.LAUNCHES.items()})
     return c
 
 
 def reset_counters() -> None:
-    from flac_raster_tpu_torch.ops import gather, pack, restore, rice_cost, rice_group, rice_scan
+    from flac_raster_tpu_torch.ops import (
+        gather, pack, restore, rice_cost, rice_group, rice_scan, subframe,
+    )
 
     rice_cost.LAUNCHES = gather.LAUNCHES = rice_scan.LAUNCHES = restore.LAUNCHES = 0
     rice_group.LAUNCHES = 0
     for v in pack.LAUNCHES:
         pack.LAUNCHES[v] = 0
+    for k in subframe.LAUNCHES:
+        subframe.LAUNCHES[k] = 0
 
 
-def run_path(name: str, fn, need):
+def run_path(name: str, fn, need, count: bool = True):
     """fn() with every launch count set to 0 just before and read just
     after; each kernel in ``need`` must have launched.  Returns (fn's
-    result, host seconds, launches)."""
+    result, host seconds, launches).  ``count=False`` keeps the launches
+    out of the kernels line (a comparison run the program never takes)."""
     import torch
 
     torch.cuda.synchronize()
@@ -369,7 +382,8 @@ def run_path(name: str, fn, need):
         if got.get(k, 0) <= 0:
             raise AssertionError(f"{k} was not launched by {name}")
     for k, n in got.items():
-        TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + n
+        if count:
+            TOTAL_LAUNCHES[k] = TOTAL_LAUNCHES.get(k, 0) + n
     return out, dt, got
 
 
@@ -680,7 +694,7 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
 
     from flac_raster_tpu_torch.ops import gather, restore, rice_scan
 
-    chunk = decode_chunk(blob, F, dev)
+    chunk = chunk_inputs(blob, F, dev)
     N = chunk["si"].max_blocksize
     body, word0, W = chunk["body"], chunk["word0"], chunk["W"]
     # the chunk's windows plus one past the body (the kernel must zero-fill
@@ -701,12 +715,15 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     # a 256 MB write, as the decode finds it after the body's upload
     flush = torch.empty(1 << 26, dtype=torch.int32, device=dev)
 
-    def cold():
+    def cold(width):
         for _ in range(20):
             flush.zero_()
-            gather.gather_windows(body, word0, W)
+            gather.gather_windows(body, word0, width)
 
-    a_cold_ms = profiled_kernel_ms(cold, "gather_windows_kernel")
+    a_cold_ms = profiled_kernel_ms(lambda: cold(W), "gather_windows_kernel")
+    # the same at the width the frames need, before its power-of-two bucket
+    W_need = unbucketed_window(chunk)
+    a_need_ms = profiled_kernel_ms(lambda: cold(W_need), "gather_windows_kernel")
     del flush
     a_plain_ms = cuda_ms(lambda: gather.gather_windows_reference(body, word0, W), iters=3, warmup=1)
     # the library yardstick: one advanced-indexing read of a zero-padded body
@@ -717,6 +734,7 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     src, dst = torch.empty_like(windows), torch.empty_like(windows)
     a_copy_ms = cuda_ms(lambda: dst.copy_(src), iters=20)
     a_bound = bound(2 * word0.numel() * W * 4, 0)       # each window word read and written
+    need_bound = bound(2 * word0.numel() * W_need * 4, 0)
     dev_txt = ", ".join("not measured" if t is None else f"{t:.4f} ms ({share(a_bound, t)})"
                         for t in (a_dev_ms, a_cold_ms))
     log(f"gather_windows: identical to plain, zeros past the body, word0 & 3 counts "
@@ -726,6 +744,12 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
         f"ms a call beside a host enqueue of {a_host_ms:.4f} ms; plain {a_plain_ms:.4f} ms, "
         f"index read {a_lib_ms:.4f} ms, contiguous copy of the same bytes {a_copy_ms:.4f} ms, "
         f"bound {a_bound}")
+    cold_ms = ["not measured" if t is None else f"{t:.4f} ms" for t in (a_cold_ms, a_need_ms)]
+    cold_txt = "not measured" if a_cold_ms is None else share(need_bound, a_cold_ms)
+    log(f"gather_windows at W {W} (a power of two) and at the {W_need} words the frames "
+        f"need: on the device after an L2 flush {cold_ms[0]} and {cold_ms[1]}; "
+        f"bound {a_bound['bound_ms']:.4f} and {need_bound['bound_ms']:.4f} ms; the bucketed "
+        f"kernel against the bound of the frames' own words {cold_txt}")
     del src, dst
 
     # the file's lanes plus one hostile lane: random words, a Rice header
@@ -763,7 +787,9 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
                      gather_err, a_ms, a_plain_ms,
                      a_bound, a_lib_ms, ms_device=a_dev_ms, ms_device_l2_flushed=a_cold_ms,
                      ms_events_100=a_ev_ms,
-                     ms_host_enqueue=a_host_ms, ms_contiguous_copy=a_copy_ms),
+                     ms_host_enqueue=a_host_ms, ms_contiguous_copy=a_copy_ms, W=W,
+                     W_unbucketed=W_need, ms_device_l2_flushed_unbucketed=a_need_ms,
+                     bound_ms_unbucketed=need_bound["bound_ms"]),
         kernel_entry("rice_scan_full", "rice_scan.cu",
                      "flac_raster_tpu/ops/pallas_rice_scan2.py:242", scan_err, b_ms,
                      b_plain_ms, b_bound, ms_with_hostile_lane=b_ms_hostile),
@@ -777,6 +803,88 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
                      bound_ms_chunk_file_lanes=k9["chunk_file_bound"]["bound_ms"]),
         kernel_entry("restore", "restore.cu", "flac_raster_tpu/ops/device_decode.py:562",
                      rest_err, c_ms, c_plain_ms, c_bound),
+        *subframe_phase(windows, chunk_table(chunk), chunk["si"].bits_per_sample, N, "level-5"),
+    ]
+
+
+def unbucketed_window(chunk: dict) -> int:
+    """The window width the chunk's frames need (whole 16-byte rows), as
+    ``device_decoder.window_words`` gives it before its power-of-two
+    bucket."""
+    from flac_raster_tpu_torch.codec import device_decoder
+
+    size = int(((chunk["fe"] - chunk["bit_base"]) // 8).max())
+    W = (3 + size + 3) // 4 + device_decoder._SLACK_WORDS
+    return -(-W // 4) * 4
+
+
+def subframe_phase(windows, tab, bps: int, N: int, label: str) -> list[dict]:
+    """The subframe parse and finish kernels against their plain versions
+    on a chunk plus two hostile frames (``check_subframe``), then each
+    timed with CUDA events on the chunk's own frames, beside its bound:
+    the parse reads each frame's table entry and the header bits of each
+    subframe (from its start to its first Rice code) and writes its ~140
+    bytes of outputs; the finish reads the restore's samples on Rice
+    lanes and the window bits of verbatim lanes and writes the (B, N, C)
+    samples."""
+    from flac_raster_tpu_torch.ops import restore, rice_scan, subframe
+    from flac_raster_tpu_torch.ops.device_codec import MAX_DEVICE_BPS
+
+    C, wide = tab.shape[0] - 2, bps > MAX_DEVICE_BPS
+    sub = check_subframe(*with_hostile_frames(windows, tab), bps, N, label)
+    hostile = sub["out"][1][-2:].tolist()
+    bit_base, fe, sf = tab[0], tab[1], tab[2:]
+    B, L = windows.shape[0], C * windows.shape[0]
+    p = subframe.subframe_parse(windows, bit_base, sf, C=C, bps=bps, N=N)
+    p_ms = cuda_ms(lambda: subframe.subframe_parse(windows, bit_base, sf, C=C, bps=bps, N=N),
+                   iters=20)
+    # bytes: bit_base and sf read, the header bits of each subframe, the
+    # outputs (lane32, flags, coefs, warm, chan); operations: ~24 a 32-bit
+    # read (header, LPC meta, residual meta, the warm-ups, the coefficients)
+    header_bits = int((p["rstart"].long() - sf.reshape(-1).long()).sum())
+    out_bytes = L * (4 * len(subframe.ROW32) + len(subframe.FLAGS) + 2 * 4 * 12) + 4 * B
+    reads = 6 * L + 2 * int(p["order"].long().sum())
+    p_bound = bound(4 * B + 4 * L + header_bits / 8 + out_bytes, 24 * reads)
+    words = windows if C == 1 else windows.repeat(C, 1)
+    zs, rend, err = rice_scan.rice_scan_full(words, *(p[k] for k in SCAN_KEYS), N)
+    sig = restore.restore(zs, p["order"], p["coefs"], p["shift"], p["warm"], N, wide=wide)
+    args = (windows, p, sig, rend, err, sf, fe)
+    samples, e = subframe.subframe_finish(*args, C=C, N=N, wide=wide)
+    if e.any():
+        raise AssertionError(f"subframe_finish flagged a frame of the valid {label} file")
+    f_ms = cuda_ms(lambda: subframe.subframe_finish(*args, C=C, N=N, wide=wide), iters=20)
+    # each kernel on the device alone (torch.profiler): the parse's event
+    # time is its wrapper's host enqueue
+    p_dev = profiled_kernel_ms(lambda: [subframe.subframe_parse(
+        windows, bit_base, sf, C=C, bps=bps, N=N) for _ in range(20)], "subframe_parse_kernel")
+    f_dev = profiled_kernel_ms(lambda: [subframe.subframe_finish(*args, C=C, N=N, wide=wide)
+                                        for _ in range(20)], "subframe_finish_kernel")
+    n_rice, n_verb = int(p["is_rice"].sum()), int(p["is_verb"].sum())
+    eb = int(p["eb"].max())
+    # bytes: the restore's samples of the Rice lanes and the verbatim lanes'
+    # window bits read, the samples written, ~20 bytes of lane parameters
+    # and ~9 of frame fields; operations: a select and a store a sample, 6
+    # with a 2-channel frame's undo
+    f_bound = bound(4 * N * n_rice + N * eb / 8 * n_verb + samples.numel() * 4 + L * 20 + B * 9,
+                    (6 if C == 2 else 3) * samples.numel())
+    dev_txt = {k: "not measured" if t is None else f"{t:.4f} ms ({share(b, t)})"
+               for k, t, b in (("parse", p_dev, p_bound), ("finish", f_dev, f_bound))}
+    log(f"subframe_parse ({label}, {L} lanes): identical to plain, two hostile frames "
+        f"included (tolerance 0); kernel {p_ms:.4f} ms by events ({share(p_bound, p_ms)}), "
+        f"on the device {dev_txt['parse']}, plain {sub['parse_plain_ms']:.4f} ms (one call), "
+        f"bound {p_bound}")
+    log(f"subframe_finish ({label}, {B} frames, {n_rice} Rice / {n_verb} verbatim lanes): "
+        f"identical to plain, the hostile frames' err {hostile} (tolerance 0); kernel "
+        f"{f_ms:.4f} ms by events ({share(f_bound, f_ms)}), on the device "
+        f"{dev_txt['finish']}, plain {sub['finish_plain_ms']:.4f} ms (one call), "
+        f"bound {f_bound}")
+    return [
+        kernel_entry("subframe_parse", "subframe_parse.cu",
+                     "flac_raster_tpu/ops/device_decode.py:164", sub["parse_err"], p_ms,
+                     sub["parse_plain_ms"], p_bound, ms_device=p_dev),
+        kernel_entry("subframe_finish", "subframe_finish.cu",
+                     "flac_raster_tpu/ops/device_decode.py:642", sub["finish_err"], f_ms,
+                     sub["finish_plain_ms"], f_bound, ms_device=f_dev),
     ]
 
 
@@ -833,7 +941,7 @@ def phase_wide_kernels(blob: bytes, dev) -> dict:
 
     si = parse_flac_metadata(blob)[0]
     N, F = si.max_blocksize, si.total_samples // si.max_blocksize
-    chunk = decode_chunk(blob, F, dev, wide=True)
+    chunk = chunk_inputs(blob, F, dev, wide=True)
     windows = gather.gather_windows(chunk["body"], chunk["word0"], chunk["W"])
     h = lane_headers(chunk, windows)
     args = [h[k] for k in SCAN_KEYS]
@@ -849,9 +957,54 @@ def phase_wide_kernels(blob: bytes, dev) -> dict:
     log(f"restore, wide ({F} lanes): identical to plain (tolerance 0: int64 sum, int32 "
         f"wraparound); kernel {ms:.4f} ms ({share(rest_bound, ms)}), plain {plain_ms:.4f} ms "
         f"(one call), bound {rest_bound}")
+    sub = subframe_phase(windows, chunk_table(chunk), si.bits_per_sample, N, "wide")
     return {"k9": k9, "restore": {"ms_wide": ms, "plain_ms_wide": plain_ms,
                                   "bound_ms_wide": rest_bound["bound_ms"],
-                                  "max_abs_err_wide": rest_err}}
+                                  "max_abs_err_wide": rest_err},
+            **lane_fields(sub, "wide")}
+
+
+def lane_fields(entries: list[dict], lane: str) -> dict:
+    """subframe_phase's entries of one lane as extra fields of the kernels
+    line, by kernel name: ``ms_<lane>``, ``ms_device_<lane>``, ... ."""
+    keys = ("ms", "ms_device", "plain_ms", "bound_ms", "max_abs_err")
+    return {k["name"]: {f"{key}_{lane}": k[key] for key in keys} for k in entries}
+
+
+def fold_lane(kernels: list[dict], fields: dict, lane: str) -> None:
+    """Add a lane's fields to the kernels line; each kernel's max_abs_err
+    becomes the largest of its lanes'."""
+    for k in kernels:
+        if k["name"] in fields:
+            extra = dict(fields[k["name"]])
+            k["max_abs_err"] = max(k["max_abs_err"], extra.pop(f"max_abs_err_{lane}"))
+            k.update(extra)
+
+
+def phase_stereo_kernels(blob: bytes, dev) -> dict:
+    """The subframe parse and finish against their plain versions on the
+    stereo file's first chunk (two channels a frame: the finish's
+    two-channel tile and its side and mid/side undo, the parse's
+    per-channel sample widths and channel-code check), as the decoder
+    hands it to a graph."""
+    from flac_raster_tpu_torch.codec import device_decoder
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
+    from flac_raster_tpu_torch.ops import gather, subframe
+
+    si = parse_flac_metadata(blob)[0]
+    N = si.max_blocksize
+    F = min(si.total_samples // N, device_decoder.DEFAULT_CHUNK_FRAMES)
+    chunk = chunk_inputs(blob, F, dev)
+    windows = gather.gather_windows(chunk["body"], chunk["word0"], chunk["W"])
+    tab = chunk_table(chunk)
+    chan = subframe.subframe_parse(windows, tab[0], tab[2:], C=2, bps=si.bits_per_sample,
+                                   N=N)["chan"]
+    hist = {name: int((chan == code).sum()) for code, name in CHANNEL_CODES.items()}
+    log(f"  the stereo chunk's {F} frames by channel assignment: {hist}")
+    if not any(hist[name] for name in ("L/S", "R/S", "M/S")):
+        raise AssertionError("no frame of the stereo chunk has a side channel")
+    sub = subframe_phase(windows, tab, si.bits_per_sample, N, "stereo")
+    return lane_fields(sub, "stereo")
 
 
 def profile_decode(blob: bytes) -> None:
@@ -886,8 +1039,10 @@ def profile_decode(blob: bytes) -> None:
 
 
 # the kernels a decode launches, by Rice engine
-DECODE_KERNELS = {"full": ["gather_windows", "rice_scan_full", "restore"],
-                  "group": ["gather_windows", "rice_group_step", "restore"]}
+DECODE_KERNELS = {"full": ["gather_windows", "subframe_parse", "rice_scan_full", "restore",
+                           "subframe_finish"],
+                  "group": ["gather_windows", "subframe_parse", "rice_group_step", "restore",
+                            "subframe_finish"]}
 
 
 def encode_path(conv, raster: np.ndarray, level: int, label: str, card: str,
@@ -928,6 +1083,9 @@ def size_envelope(blob: bytes, jax_frame_bytes: int, label: str) -> None:
         raise AssertionError(f"{label}: port frames {frame_bytes} B exceed {limit:.0f} B")
 
 
+CHANNEL_CODES = {1: "L/R", 8: "L/S", 9: "R/S", 10: "M/S"}    # a 2-channel frame's
+
+
 def chan_histogram(blob: bytes) -> dict:
     """Frames per channel assignment, read from each frame header."""
     from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
@@ -936,8 +1094,8 @@ def chan_histogram(blob: bytes) -> dict:
     sizes = parse_layout_block(blocks).sizes
     starts = start + np.cumsum(sizes) - sizes
     codes = np.frombuffer(blob, np.uint8)[starts + 3] >> 4
-    names = {1: "L/R", 8: "L/S", 9: "R/S", 10: "M/S"}
-    return {names.get(int(c), str(int(c))): int(n) for c, n in zip(*np.unique(codes, return_counts=True))}
+    return {CHANNEL_CODES.get(int(c), str(int(c))): int(n)
+            for c, n in zip(*np.unique(codes, return_counts=True))}
 
 
 def minmax_phase(raster: np.ndarray, label: str, jax_frame_bytes: int, card: str, dev,
@@ -1676,7 +1834,7 @@ def graph_phase(scene: np.ndarray, dev, card: str) -> None:
         graph_ms, graph_host = events_and_host_ms(graph.replay, 10)
         log(f"  {label} {tuple(rows.shape)} in a graph of {len(graph.numbers)} frames: replay "
             f"equal to eager plan_and_emit (tolerance 0), "
-            f"launches a replay K1 {graph.rice_launches}, packs {graph.pack_launches}; capture "
+            f"launches a replay {graph.launches}; capture "
             f"{graph.capture_s:.3f} s, pool {graph.pool_bytes / 1e9:.3f} GB; events / host "
             f"enqueue ms: replay {graph_ms:.3f} / {graph_host:.3f}, eager {eager_ms:.3f} / "
             f"{eager_host:.3f} | {card}")
@@ -1716,6 +1874,176 @@ def graph_phase(scene: np.ndarray, dev, card: str) -> None:
     torch.cuda.empty_cache()
     log(f"  after chunk_graph.clear() and empty_cache(): reserved "
         f"{torch.cuda.memory_reserved() / 1e9:.3f} GB")
+
+
+DECODE_GRAPH_SCANS = ("full", "group")
+
+
+def eager_decode(self, graph, windows, rows32, C, bps, scan):
+    """``FrameBatch._decode`` without the replay: the same kernels on the
+    same padded chunk's windows, launched one by one (phase 23's
+    comparison)."""
+    from flac_raster_tpu_torch.ops.device_decode import decode_chunk
+
+    return decode_chunk(windows, rows32.contiguous(), C=C, bps=bps, N=self.N, scan=scan)
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Decode chunks by eager launches instead of graph replays."""
+    from flac_raster_tpu_torch.codec.device_decoder import FrameBatch
+
+    saved = FrameBatch._decode
+    FrameBatch._decode = eager_decode
+    try:
+        yield
+    finally:
+        FrameBatch._decode = saved
+
+
+def decode_stages(fn) -> dict:
+    """The host time (ms) of each ``frtt.decode.*`` range of one fn()
+    (torch.profiler's host ranges)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: round(e.cpu_time_total / 1e3, 3) for e in prof.key_averages()
+            if e.key.startswith("frtt.decode")}
+
+
+def decode_graph_phase(files: dict, scene: np.ndarray, work: Path, card: str, dev) -> None:
+    """Phase 23: the decode graphs (``codec/decode_graph``, one CUDA graph of
+    a decode chunk a shape, which every decode above replays).  Each file
+    of phases 3, 9, 10 and 11 with each Rice engine: ``decode_bytes_device``
+    by replay (warm, timed with launch counts: each chunk one replay plus a
+    K10 launch, no capture, no host route) and by the same kernels launched
+    eagerly, the two rasters and the host decoder's equal bit for bit, and
+    each one's ``frtt.decode.*`` host stages; the file's first chunk by
+    replay and eagerly, CUDA events and the host's enqueue a chunk, equal
+    outputs; the busy share as the chunks' event time over the timed
+    decode's wall.  Then the batched bbox read of the phase-16 file in
+    turns, replay and eager; every decode capture's time and pool; and the
+    memory reserved after an encode, then the decodes, in one process."""
+    import torch
+
+    from flac_raster_tpu_torch import RasterFLACConverter, SpatialFLACStreamer
+    from flac_raster_tpu_torch.codec import chunk_graph, device_decoder
+    from flac_raster_tpu_torch.codec.decode_graph import decode_graph
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
+    from flac_raster_tpu_torch.ops import gather
+    from flac_raster_tpu_torch.ops.device_codec import MAX_DEVICE_BPS
+    from flac_raster_tpu_torch.ops.device_decode import decode_chunk
+
+    conv = RasterFLACConverter(device="cuda")
+    for label, blob in files.items():
+        si = parse_flac_metadata(blob)[0]
+        N, C, bps = si.max_blocksize, si.channels, si.bits_per_sample
+        full = si.total_samples // N
+        chunks = -(-full // device_decoder.DEFAULT_CHUNK_FRAMES)
+        host, _ = conv.decode_bytes(blob)
+        # the file's first chunk, as the decoder hands it to a graph
+        first = chunk_inputs(blob, min(full, device_decoder.DEFAULT_CHUNK_FRAMES), dev,
+                             wide=bps > MAX_DEVICE_BPS)
+        windows = gather.gather_windows(first["body"], first["word0"], first["W"])
+        tab = chunk_table(first)
+        # what the power-of-two window costs K10 on this file (warm L2)
+        widths = (first["W"], unbucketed_window(first))
+        g_ms = [profiled_kernel_ms(lambda: [gather.gather_windows(
+            first["body"], first["word0"], w) for _ in range(20)], "gather_windows_kernel")
+            for w in widths]
+        log(f"  {label}: K10 on its first chunk, on the device: W {widths[0]} {g_ms[0]} ms, "
+            f"the frames' own {widths[1]} words {g_ms[1]} ms | {card}")
+        for scan in DECODE_GRAPH_SCANS:
+            conv.decode_bytes_device(blob, scan=scan)          # warm: captures a new shape
+            n_caps = len(chunk_graph.CAPTURES)
+            routes = device_decoder.HOST_ROUTES
+            (data, _), dt, launches = run_path(f"the {label} decode by replay ({scan})",
+                                               lambda: conv.decode_bytes_device(blob, scan=scan),
+                                               DECODE_KERNELS[scan])
+            engine = DECODE_KERNELS[scan][2]
+            per_chunk = {k: n / chunks for k, n in launches.items()}
+            if (device_decoder.HOST_ROUTES != routes or len(chunk_graph.CAPTURES) != n_caps
+                    or any(per_chunk[k] != 1 for k in DECODE_KERNELS[scan] if k != engine)):
+                raise AssertionError(f"the {label} decode ({scan}): launches {launches} over "
+                                     f"{chunks} chunks, or a capture or host route")
+            with eager_chunks():
+                (eager, _), dt_e, _ = run_path(f"the {label} eager decode ({scan})",
+                                               lambda: conv.decode_bytes_device(blob, scan=scan),
+                                               DECODE_KERNELS[scan], count=False)
+                stages_e = decode_stages(lambda: conv.decode_bytes_device(blob, scan=scan))
+            stages = decode_stages(lambda: conv.decode_bytes_device(blob, scan=scan))
+            if not (data.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()
+                    == host.tobytes()):
+                raise AssertionError(f"the {label} decode ({scan}): replay, eager and the host "
+                                     "decoder differ")
+            del data, eager
+            graph = decode_graph(dev, *windows.shape, C, bps, N, scan)
+            with graph.use():
+                graph.windows.copy_(windows)
+                graph.tab.copy_(tab)
+            want = decode_chunk(windows, tab, C=C, bps=bps, N=N, scan=scan)
+            replay_ms, replay_host = events_and_host_ms(graph.replay, 10)
+            eager_ms, eager_host = events_and_host_ms(
+                lambda: decode_chunk(windows, tab, C=C, bps=bps, N=N, scan=scan), 5)
+            if not (torch.equal(graph.samples, want[0]) and torch.equal(graph.err, want[1])):
+                raise AssertionError(f"the {label} first chunk's replay differs from eager")
+            del graph, want
+            mb = host.nbytes / 1e6
+            log(f"  {label} ({scan}), {chunks} chunks: replay {mb / dt:.2f} MB/s, eager "
+                f"{mb / dt_e:.2f} MB/s, rasters equal bit for bit (replay, eager, host); "
+                f"launches {launches} ({per_chunk[engine]:g} {engine} a chunk); its first "
+                f"chunk ({windows.shape[0]} frames, W {windows.shape[1]}), events / host "
+                f"enqueue ms: replay {replay_ms:.4f} / {replay_host:.4f}, eager {eager_ms:.4f} "
+                f"/ {eager_host:.4f}, equal outputs; busy (the chunks' event time over the "
+                f"timed wall) {100 * chunks * replay_ms / 1e3 / dt:.1f}% | {card}")
+            log(f"    host stages (ms): replay {stages}; eager {stages_e}")
+        del host, windows, tab, first
+        torch.cuda.empty_cache()
+
+    st = SpatialFLACStreamer(work / "band.spatial.flac", device=dev)
+    times = {"replay": [], "eager": []}
+    for mode in ("replay", "eager", "eager", "replay"):
+        ctx = eager_chunks() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            out, t, _ = run_path(f"the {mode} bbox decode", lambda: st.decode_bbox_device(
+                WHOLE_RASTER), DECODE_KERNELS["full"], count=mode == "replay")
+        times[mode].append(round(t / len(out) * 1e3, 3))
+        del out
+    log(f"  decode_bbox_device, whole raster ({len(st._tiles(WHOLE_RASTER)[1])} tiles), ms a "
+        f"tile in turns: replay {times['replay']}, eager {times['eager']} | {card}")
+    profile_bbox(st, WHOLE_RASTER)
+    for c in chunk_graph.CAPTURES:
+        if c["kind"] == "decode":
+            log(f"  capture {c}")
+
+    chunk_graph.clear()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    RasterFLACConverter(device="cuda", compute_md5=False).encode_array(scene,
+                                                                       compression_level=LEVEL)
+    torch.cuda.synchronize()
+    after_encode = torch.cuda.memory_reserved()
+    for blob in files.values():
+        for scan in DECODE_GRAPH_SCANS:
+            conv.decode_bytes_device(blob, scan=scan)
+    torch.cuda.synchronize()
+    pools = {}
+    for key, g in chunk_graph._CACHE.items():
+        pools[key[0]] = pools.get(key[0], 0) + g.pool_bytes
+    total = sum(pools.values())
+    if total > chunk_graph.CACHE_BYTES and len(chunk_graph._CACHE) > 1:
+        raise AssertionError(f"the cached graphs hold {total} bytes of pools")
+    log(f"  an encode then the decodes in one process: reserved {base / 1e9:.3f} GB before, "
+        f"{after_encode / 1e9:.3f} after the 8192x8192 encode, "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} after the decodes; {len(chunk_graph._CACHE)} "
+        f"cached graphs, pools by kind (GB) "
+        f"{ {k: round(v / 1e9, 3) for k, v in pools.items()} } under CACHE_BYTES "
+        f"{chunk_graph.CACHE_BYTES / 1e9:.3f} | {card}")
+    chunk_graph.clear()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1764,6 +2092,7 @@ def run(work: Path, t_start: float) -> int:
         f"{device_emit.SAMPLE_PACK_VERSION})")
     conv = RasterFLACConverter(device="cuda", compute_md5=False)
     blob = encode_path(conv, scene, LEVEL, "level-5", card)
+    files = {"8192x8192 level 5": blob}     # phase 23 decodes them again
     scene_file = work / "scene.flac"        # phase 18 reads it from disk
     scene_file.write_bytes(blob)
     profile_encode(conv, scene)
@@ -1804,6 +2133,7 @@ def run(work: Path, t_start: float) -> int:
     n = tail_scene.size
     log(f"  {n} samples: {n // 4096} full frames + a {n % 4096}-sample tail")
     blob = encode_path(conv, tail_scene, LEVEL, "tail", card)
+    files[f"{TAIL_SIZE}x{TAIL_SIZE} level 5"] = blob
     host_round_trip(conv, blob, tail_scene, "tail")
     decode_on_card(blob, tail_scene, dev, card, "tail")
     size_envelope(blob, JAX_TAIL_FRAME_BYTES, "tail")
@@ -1813,12 +2143,14 @@ def run(work: Path, t_start: float) -> int:
     log(f"phase 10: stereo path, 2x{STEREO_SIZE}x{STEREO_SIZE} uint16 at level {STEREO_LEVEL}")
     blob = encode_path(conv, stereo, STEREO_LEVEL, "stereo", card,
                        warm_raster=np.ascontiguousarray(stereo[:, :256]))
+    files[f"2x{STEREO_SIZE}x{STEREO_SIZE} level {STEREO_LEVEL}"] = blob
     hist = chan_histogram(blob)
     log(f"  channel assignments: {hist}")
     if not set(hist) & {"L/S", "R/S", "M/S"}:
         raise AssertionError("no frame of the stereo scene took a side channel")
     host_round_trip(conv, blob, stereo, "stereo")
     decode_on_card(blob, stereo, dev, card, "stereo")
+    fold_lane(kernels, phase_stereo_kernels(blob, dev), "stereo")
     size_envelope(blob, JAX_STEREO_FRAME_BYTES, "stereo")
     del stereo, blob
     torch.cuda.empty_cache()
@@ -1829,6 +2161,7 @@ def run(work: Path, t_start: float) -> int:
     log(f"  {n} samples at 32 bps: {n // 4096} full frames + a {n % 4096}-sample tail, "
         f"{int(np.isnan(dem).sum())} NaNs")
     blob = encode_path(conv, dem, LEVEL, "wide", card, wide=True)
+    files[f"{DEM_SIZE}x{DEM_SIZE} float32 level {LEVEL}"] = blob
     host_round_trip(conv, blob, dem, "wide")
     for scan in ("full", "group"):
         decode_on_card(blob, dem, dev, card, "wide", scan=scan)
@@ -1843,9 +2176,7 @@ def run(work: Path, t_start: float) -> int:
                      ms_chunk_enqueue_host_wide=wide["k9"]["enqueue_ms"],
                      bound_ms_chunk_wide=wide["k9"]["chunk_bound"]["bound_ms"])
             k["max_abs_err"] = max(k["max_abs_err"], wide["k9"]["err"])
-        elif k["name"] == "restore":
-            k["max_abs_err"] = max(k["max_abs_err"], wide["restore"].pop("max_abs_err_wide"))
-            k.update(wide["restore"])
+    fold_lane(kernels, wide, "wide")
 
     del dem, blob
     torch.cuda.empty_cache()
@@ -1896,8 +2227,13 @@ def run(work: Path, t_start: float) -> int:
     log(f"selftest: every check OK, {time.perf_counter() - t0:.1f} s | {card}")
 
     log(f"phase 22: the chunk graphs on the {SCENE_SIZE}x{SCENE_SIZE} scene")
-    graph_phase(make_raster(SCENE_SIZE), dev, card)
+    scene = make_raster(SCENE_SIZE)
+    graph_phase(scene, dev, card)
     torch.cuda.empty_cache()
+
+    log("phase 23: the decode graphs: each scene's file by replay and eager, both engines")
+    decode_graph_phase(files, scene, work, card, dev)
+    del scene, files
 
     for k in kernels:
         k["launches"] = TOTAL_LAUNCHES.get(k["name"], 0)

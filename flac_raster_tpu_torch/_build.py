@@ -139,6 +139,12 @@ def kernels():
     lib.frtt_rice_group_scan.restype = ctypes.c_int
     lib.frtt_restore.argtypes = [vp, i64, i32, vp, vp, vp, vp, i32, vp, vp]
     lib.frtt_restore.restype = ctypes.c_int
+    lib.frtt_subframe_parse.argtypes = [vp, i64, i32, vp, vp, i32, i32, i32, i32, vp, vp, vp,
+                                        vp, vp, vp]
+    lib.frtt_subframe_parse.restype = ctypes.c_int
+    lib.frtt_subframe_finish.argtypes = [vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp,
+                                         vp, vp, vp, vp, vp]
+    lib.frtt_subframe_finish.restype = ctypes.c_int
     lib.frtt_error_string.argtypes = [ctypes.c_int]
     lib.frtt_error_string.restype = ctypes.c_char_p
     _lib = lib

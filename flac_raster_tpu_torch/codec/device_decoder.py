@@ -8,8 +8,9 @@ frame's header length; the body is byteswapped to big-endian words on the
 host and uploaded once, from pinned memory.  Per chunk of frames the card
 gathers one window of words per frame (``ops/gather``) and decodes all
 subframes of all frames in one batched pass (``ops/device_decode``), with
-either Rice engine (``scan``).  Streams of 32 bits per sample take the
-wide lane of the same pass.  The
+either Rice engine (``scan``): one replay of a CUDA graph a chunk shape
+(``codec/decode_graph``), as the JAX package runs one compiled executable.
+Streams of 32 bits per sample take the wide lane of the same pass.  The
 error flags of all chunks are read back once, after every chunk is
 enqueued.  A partial tail frame decodes on the host, as in the JAX package.
 
@@ -24,6 +25,7 @@ build or launch raises; it never takes the host route.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 
 import numpy as np
@@ -38,7 +40,7 @@ from ..models.flac_format import (
     parse_layout_block,
 )
 from ..ops.device_codec import MAX_DEVICE_BPS
-from ..ops.device_decode import SCAN_ENGINES, decode_frames_device
+from ..ops.device_decode import SCAN_ENGINES, decode_chunk
 from ..ops.gather import gather_windows
 from .decoder import (
     DecodedStream,
@@ -48,13 +50,14 @@ from .decoder import (
     decode_frame_span,
     md5_of_samples,
 )
+from .decode_graph import decode_graph
 from .device_encoder import device_scope, resolve_device
 from .encoder import _blocksize_header
 
 logger = logging.getLogger("flac_raster_tpu_torch.device_decoder")
 
 __all__ = ["decode_flac_device", "prepare_frames", "stream_plan", "FrameBatch",
-           "DEFAULT_CHUNK_FRAMES", "HOST_ROUTES"]
+           "chunk_schedule", "window_words", "DEFAULT_CHUNK_FRAMES", "HOST_ROUTES"]
 
 DEFAULT_CHUNK_FRAMES = 4096
 HOST_ROUTES = 0  # decodes that took the host route since import
@@ -158,10 +161,29 @@ def frame_tables(offs: np.ndarray, sizes: np.ndarray, frame_idx: np.ndarray, sub
 
 
 def window_words(max_size: int) -> int:
-    """Window words for frames of at most ``max_size`` bytes: whole 16-byte
-    rows, for the gather's vector stores."""
+    """Window words for frames of at most ``max_size`` bytes, bucketed to a
+    power of two (at least 8: whole 16-byte rows, for the gather's vector
+    stores), so that files of many frame sizes share a few decode graphs,
+    as the JAX loop buckets its gather (``flac_raster_tpu/codec/
+    device_decoder.py:309``)."""
     W = (3 + max_size + 3) // 4 + _SLACK_WORDS
-    return -(-W // 4) * 4
+    return 1 << max(3, (W - 1).bit_length())
+
+
+def chunk_schedule(n_frames: int, n_devices: int, chunk: int) -> list:
+    """The chunks of a batch of ``n_frames`` full frames spread over a row of
+    ``n_devices`` devices: (device index, first frame, frames B, padded
+    frames Bp).  A partial chunk is padded to the next power of two, at most
+    ``chunk``, as the JAX loop pads it (``flac_raster_tpu/codec/
+    device_decoder.py:331``), so that files of many sizes capture few
+    graphs."""
+    out = []
+    for s in range(n_devices):
+        lo, hi = n_frames * s // n_devices, n_frames * (s + 1) // n_devices
+        for f0 in range(lo, hi, chunk):
+            B = min(chunk, hi - f0)
+            out.append((s, f0, B, min(chunk, 1 << (B - 1).bit_length())))
+    return out
 
 
 def stream_plan(buf: bytes, si: StreamInfo, layout, frame_start: int,
@@ -203,14 +225,18 @@ class FrameBatch:
     decoded together on a row of devices and enqueued at construction.
 
     The streams' word-aligned bodies go up concatenated, once, from pinned
-    memory, after one native CRC-16 pass over all their frames in range.
-    The full frames spread over the row's devices (a device may repeat) in
-    chunks of ``chunk`` frames: window gather (K10), Rice scan (K8 or K9 by
-    ``scan``) and predictor restore, each chunk's samples copied into one
-    output buffer (on the row's first device) in which every stream owns
-    contiguous slots of N rows, one more for a tail.  :meth:`put_tails`
-    decodes the tails on the host; :meth:`flagged` pulls the err flags,
-    once a device.
+    memory, after one native CRC-16 pass over all their frames in range,
+    with one table of every frame's offsets (:func:`chunk_schedule`'s
+    chunks, a column a chunk row).  The full frames spread over the row's
+    devices (a device may repeat) in chunks of ``chunk`` frames: the window
+    gather (K10), then ``ops/device_decode.decode_chunk`` -- on a CUDA
+    device one replay of the chunk shape's graph (``codec/decode_graph``),
+    on the CPU its plain versions; a partial chunk padded to a power of
+    two, its padded rows repeating its first frame -- each chunk's samples
+    copied into one output buffer (on the row's first device) in which
+    every stream owns contiguous slots of N rows, one more for a tail.
+    :meth:`put_tails` decodes the tails on the host; :meth:`flagged` pulls
+    the err flags, once a device.
     """
 
     def __init__(self, blobs, plans, row, N: int, C: int, bps: int, verify_crc: bool,
@@ -248,15 +274,19 @@ class FrameBatch:
         if n_frames == 0:
             return
         raw.view(np.uint32).byteswap(inplace=True)      # big-endian words
-        # one int64 table a frame: word0, bit_base, fe, destination slot, sf
-        tab = np.empty((n_frames, 4 + C), np.int64)
+        chunks = chunk_schedule(n_frames, len(row), chunk)
+        # one int64 table column a chunk row (padded rows repeat the chunk's
+        # first frame): word0, destination slot, bit_base, fe, sf
+        cols = np.concatenate([np.r_[f0 : f0 + B, np.full(Bp - B, f0)]
+                               for _, f0, B, Bp in chunks])
         cat = {k: np.concatenate([p["tables"][k] for p in plans])
                for k in ("word0", "bit_base", "fe", "sf")}
-        tab[:, 0] = cat["word0"] + np.repeat(base, F)
-        tab[:, 1] = cat["bit_base"]
-        tab[:, 2] = cat["fe"]
-        tab[:, 3] = np.arange(n_frames) + np.repeat(self.slot0 - (np.cumsum(F) - F), F)
-        tab[:, 4:] = cat["sf"]
+        tab = np.empty((4 + C, len(cols)), np.int64)
+        tab[0] = (cat["word0"] + np.repeat(base, F))[cols]
+        tab[1] = (np.arange(n_frames) + np.repeat(self.slot0 - (np.cumsum(F) - F), F))[cols]
+        tab[2] = cat["bit_base"][cols]
+        tab[3] = cat["fe"][cols]
+        tab[4:] = cat["sf"][cols].T
         W = window_words(int(max(p["sizes"][p["f0"] : p["f0"] + p["F"]].max()
                                  for p in plans if p["F"])))
         tab_host = torch.from_numpy(tab)
@@ -266,26 +296,48 @@ class FrameBatch:
             for dev in row:
                 if dev not in uploads:
                     if dev.type == "cuda":
-                        uploads[dev] = (host.to(dev, non_blocking=True),
-                                        tab_host.pin_memory().to(dev, non_blocking=True))
+                        t = tab_host.pin_memory().to(dev, non_blocking=True)
+                        uploads[dev] = (host.to(dev, non_blocking=True), t, t[2:].to(torch.int32))
                     else:
-                        uploads[dev] = (host, tab_host)
-        for s, dev in enumerate(row):
-            body, tab_dev = uploads[dev]
-            dst = tab_dev[:, 3].to(out_dev).contiguous()
+                        uploads[dev] = (host, tab_host, tab_host[2:].to(torch.int32))
+        r0 = 0
+        for s, f0, B, Bp in chunks:
+            dev = row[s]
+            body, tab_dev, tab32 = uploads[dev]
+            word0, rows32 = tab_dev[0, r0 : r0 + Bp], tab32[:, r0 : r0 + Bp]
+            dst = tab_dev[1, r0 : r0 + B].to(out_dev)
+            r0 += Bp
             with device_scope(dev):
-                for f0 in range(n_frames * s // len(row), n_frames * (s + 1) // len(row),
-                                chunk):
-                    f1 = min(f0 + chunk, n_frames * (s + 1) // len(row))
-                    with record_function("frtt.decode.gather"):
-                        windows = gather_windows(body, tab_dev[f0:f1, 0].contiguous(), W)
-                    with record_function("frtt.decode.frames"):
-                        samples, err = decode_frames_device(
-                            windows, tab_dev[f0:f1, 1], tab_dev[f0:f1, 4:], tab_dev[f0:f1, 2],
-                            C=C, bps=bps, N=N, scan=scan)
-                        slots.index_copy_(0, dst[f0:f1], samples.to(out_dev))
-                    self.errs.setdefault(dev, []).append((f0, f1, err))
-                    del windows, samples
+                err = self._chunk(body, word0, rows32, dst, slots, B, Bp, W, C, bps, scan)
+            self.errs.setdefault(dev, []).append((f0, f0 + B, err))
+
+    def _chunk(self, body, word0, rows32, dst, slots, B: int, Bp: int, W: int, C: int,
+               bps: int, scan: str) -> torch.Tensor:
+        """One chunk: the window gather (into the chunk graph's static
+        windows on a card), :meth:`_decode`, the samples copied to their
+        slots; returns the chunk's err flags (a copy)."""
+        graph = None
+        if body.device.type == "cuda":
+            with record_function("frtt.decode.capture"):
+                graph = decode_graph(body.device, Bp, W, C, bps, self.N, scan)
+        with graph.use() if graph is not None else contextlib.nullcontext():
+            with record_function("frtt.decode.gather"):
+                windows = gather_windows(body, word0, W,
+                                         out=None if graph is None else graph.windows)
+            with record_function("frtt.decode.frames"):
+                samples, err = self._decode(graph, windows, rows32, C, bps, scan)
+                slots.index_copy_(0, dst, samples[:B].to(slots.device))
+                return err[:B].clone()
+
+    def _decode(self, graph, windows, rows32, C: int, bps: int, scan: str):
+        """The chunk's decode from its windows and (2 + C, Bp) table rows:
+        one replay of its graph on a card (the rows copied in), the
+        kernels' plain versions on the CPU.  Returns (samples, err)."""
+        if graph is None:
+            return decode_chunk(windows, rows32.contiguous(), C=C, bps=bps, N=self.N, scan=scan)
+        graph.tab.copy_(rows32)
+        graph.replay()
+        return graph.samples, graph.err
 
     def put_tails(self, verify_crc: bool) -> None:
         """Decode the streams' tail frames on the host and copy them into

@@ -89,15 +89,23 @@ def gather_windows_mirror(body: torch.Tensor, word0: torch.Tensor, W: int):
     return flat.gather(1, cols), int(straddle.sum())
 
 
-def gather_windows(body: torch.Tensor, word0: torch.Tensor, W: int) -> torch.Tensor:
-    """(B, W) int32 windows of ``body`` starting at ``word0``; zeros past R."""
+def gather_windows(body: torch.Tensor, word0: torch.Tensor, W: int,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, W) int32 windows of ``body`` starting at ``word0``; zeros past R.
+    ``out``: a contiguous (B, W) int32 tensor on the body's device to write
+    them into (a decode graph's static windows), returned."""
+    B = word0.numel()
+    if out is not None and (out.dtype != torch.int32 or out.shape != (B, W)
+                            or not out.is_contiguous() or out.device != body.device):
+        raise ValueError(f"out must be a contiguous ({B}, {W}) int32 tensor on {body.device}")
     if body.device.type == "cpu":
-        return gather_windows_reference(body, word0, W)
+        ref = gather_windows_reference(body, word0, W)
+        return ref if out is None else out.copy_(ref)
     if body.device.type != "cuda":
         raise ValueError(f"unsupported device {body.device}")
     _check(body, word0, W)
-    B = word0.numel()
-    out = torch.empty((B, W), dtype=torch.int32, device=body.device)
+    if out is None:
+        out = torch.empty((B, W), dtype=torch.int32, device=body.device)
     if B == 0 or W == 0:
         return out
     stream = torch.cuda.current_stream(body.device).cuda_stream

@@ -6,9 +6,10 @@ The counterpart of ``tools/tpu_selftest.py``.  Run it as
 
 It prints one line per check and exits 0 only if every check passed:
 
-  1. each of the ten kernels (the Rice cost table, the five pack versions,
-     the window gather, the Rice chain scan, the grouped Rice step and the
-     predictor restore, narrow and wide) equals its plain PyTorch version,
+  1. each of the twelve kernels (the Rice cost table, the five pack
+     versions, the window gather, the Rice chain scan, the grouped Rice
+     step, the predictor restore, the subframe parse and the subframe
+     finish, narrow and wide) equals its plain PyTorch version,
      tolerance 0, at small shapes cut from real streams; on ``--device cpu``
      it prints ``SKIP`` (the kernels need the card);
   2. the device's level-5 plan equals the CPU's plan of the same blocks,
@@ -36,9 +37,11 @@ import time
 import numpy as np
 import torch
 
+from ..ops.device_decode import SCAN_KEYS
+
 __all__ = ["main", "make_raster", "make_dem", "make_minmax_dem", "make_stereo",
            "check_kernels", "check_plan", "check_encode", "check_decode", "check_chunk_graph",
-           "card_rows"]
+           "check_subframe", "chunk_table", "with_hostile_frames", "card_rows"]
 
 M32 = 0xFFFFFFFF
 SIZE_ENVELOPE = 1.0025
@@ -260,7 +263,7 @@ def check_hostile_pack(samples, n_words: int):
 # decode kernels: inputs of a real file's chunk, and each kernel against plain
 # ---------------------------------------------------------------------------
 
-def decode_chunk(blob: bytes, F: int, dev, wide: bool = False) -> dict:
+def chunk_inputs(blob: bytes, F: int, dev, wide: bool = False) -> dict:
     """The first F full frames of a file as the decoder's chunk: the body
     words (``body``), each frame's first word (``word0``), the window width
     (``W``), the subframe starts and the stream's STREAMINFO (``si``)."""
@@ -283,7 +286,6 @@ def lane_headers(chunk: dict, windows: torch.Tensor) -> dict:
                         N=chunk["si"].max_blocksize, wide=chunk["wide"])
 
 
-SCAN_KEYS = ("rstart", "err", "is_rice", "order", "n_codes", "pbits", "psm")
 
 
 def check_gather(body: torch.Tensor, word0: torch.Tensor, W: int):
@@ -376,6 +378,61 @@ def check_group_step(words: torch.Tensor, args: list, N: int, label: str) -> dic
     return dict(c0=c0, mine=mine, zs=zs_k, err=_u32_err(zs_k, zs_p), plain_ms=plain_ms)
 
 
+def chunk_table(chunk: dict) -> torch.Tensor:
+    """The chunk's (2 + C, F) int32 frame table (``ops/device_decode.decode_chunk``'s)."""
+    from ..ops.device_decode import frame_table
+
+    return frame_table(chunk["bit_base"], chunk["sf"], chunk["fe"], chunk["si"].channels)
+
+
+def with_hostile_frames(windows: torch.Tensor, tab: torch.Tensor, seed: int = 7):
+    """The chunk's windows and table plus two frames of random words: one
+    whose subframes start at random bits, one whose subframe headers say
+    verbatim (type 000001), so that the finish reads its window."""
+    rng = np.random.default_rng(seed)
+    dev, W = windows.device, windows.shape[1]
+    C = tab.shape[0] - 2
+    rows = rng.integers(0, 1 << 32, (2, W), dtype=np.uint64).astype(np.uint32)
+    sf = np.stack([rng.integers(40, 16 * W, C), 64 + 32 * np.arange(C)])   # (2, C) bits
+    for c in range(C):                   # the second frame's subframe headers: verbatim
+        rows[1, 2 + c] = (rows[1, 2 + c] & 0x00FFFFFF) | 0x02000000
+    col = np.concatenate([np.array([[3, 0], [rng.integers(0, 32 * W), 32 * W]]), sf.T])
+    words = torch.cat([windows, torch.from_numpy(rows.view(np.int32)).to(dev)])
+    return words, torch.cat([tab, torch.from_numpy(col.astype(np.int32)).to(dev)], dim=1)
+
+
+def check_subframe(windows: torch.Tensor, tab: torch.Tensor, bps: int, N: int, label: str):
+    """The subframe parse and finish kernels against their plain versions,
+    tolerance 0: every output of the parse; then, from the Rice scan (K8)
+    and the restore of the kernel's parse, the finish's samples and err
+    flags.  Returns the kernel outputs (``p``, ``sig``, ``rend``, ``err``,
+    ``out``), the largest differences (0) and the plain versions' ms."""
+    from ..ops import restore, rice_scan, subframe
+    from ..ops.device_codec import MAX_DEVICE_BPS
+
+    C, wide, dev = tab.shape[0] - 2, bps > MAX_DEVICE_BPS, windows.device
+    bit_base, fe, sf = tab[0], tab[1], tab[2:]
+    p = subframe.subframe_parse(windows, bit_base, sf, C=C, bps=bps, N=N)
+    ref, parse_ms = timed_once(lambda: subframe.subframe_parse_reference(
+        windows, bit_base, sf, C=C, bps=bps, N=N), dev)
+    for key in ("lane32", "flags", "coefs", "warm", "chan"):
+        if not torch.equal(p[key], ref[key]):
+            raise AssertionError(f"subframe_parse's {key} differs from plain on the {label} "
+                                 "chunk")
+    words = windows if C == 1 else windows.repeat(C, 1)
+    zs, rend, err = rice_scan.rice_scan_full(words, *(p[k] for k in SCAN_KEYS), N)
+    sig = restore.restore(zs, p["order"], p["coefs"], p["shift"], p["warm"], N, wide=wide)
+    args = (windows, p, sig, rend, err, sf, fe)
+    out = subframe.subframe_finish(*args, C=C, N=N, wide=wide)
+    out_p, finish_ms = timed_once(lambda: subframe.finish_reference(*args, C=C, N=N, wide=wide),
+                                  dev)
+    if not (torch.equal(out[0], out_p[0]) and torch.equal(out[1], out_p[1])):
+        raise AssertionError(f"subframe_finish differs from plain on the {label} chunk")
+    return dict(p=p, sig=sig, rend=rend, err=err, out=out, parse_err=_u32_err(p["lane32"],
+                ref["lane32"]), finish_err=_u32_err(out[0], out_p[0]), parse_plain_ms=parse_ms,
+                finish_plain_ms=finish_ms)
+
+
 def check_restore(rest_args: list, wide: bool = False):
     """The predictor restore against plain (int32 wraparound; the wide lane
     an int64 sum).  Returns (the kernel's samples, the largest difference
@@ -396,7 +453,7 @@ def check_restore(rest_args: list, wide: bool = False):
 
 KERNELS = ("rice_cost_sums", "pack_tokens", "pack_tokens_v2", "pack_tokens_v3",
            "pack_tokens_v4", "pack_tokens_v5", "gather_windows", "rice_scan_full",
-           "rice_group_step", "restore")
+           "rice_group_step", "restore", "subframe_parse", "subframe_finish")
 
 
 def card_rows(rows: np.ndarray, dev) -> torch.Tensor:
@@ -423,7 +480,7 @@ def check_chunk_graph(rows: np.ndarray, numbers: np.ndarray, layout: dict, zero_
     as eager does, tolerance 0, and the replays add ``replays`` times the
     captured launches to the kernels' counters.  Returns the graph."""
     from ..codec import chunk_graph
-    from ..ops import device_emit, pack, rice_cost
+    from ..ops import device_emit
 
     F, _, C = rows.shape
     frames = frames or F
@@ -444,13 +501,12 @@ def check_chunk_graph(rows: np.ndarray, numbers: np.ndarray, layout: dict, zero_
             graph.numbers[:F].copy_(nums)
             if src is not x:
                 graph.replay()
-    rice0, packs0 = rice_cost.LAUNCHES, dict(pack.LAUNCHES)
+    before = chunk_graph.launch_counts()
     for _ in range(replays):
         graph.replay()
     torch.cuda.synchronize()
-    if rice_cost.LAUNCHES - rice0 != replays * graph.rice_launches or any(
-            n - packs0[v] != replays * graph.pack_launches.get(v, 0)
-            for v, n in pack.LAUNCHES.items()):
+    moved = {k: n - before[k] for k, n in chunk_graph.launch_counts().items() if n != before[k]}
+    if moved != {k: replays * n for k, n in graph.launches.items()}:
         raise AssertionError("a graph's replays moved the launch counts by other than the "
                              "captured launches")
     frame_bits, err, subs = chunk_graph.split_head(graph.head.cpu().numpy(), frames, C)
@@ -475,7 +531,8 @@ def check_kernels(dev, frames: int = 16) -> dict:
     from real streams: ``frames`` level-5 frames of make_raster and a
     level-8 mid-side chunk for the encode kernels; for the decode kernels
     the level-5 file of the same scene at blocksize 512 (its ``4 * frames``
-    frames plus a hostile lane) and the float32 DEM's 32-bps stream.
+    frames plus a hostile lane), for the subframe kernels also the level-8
+    stereo scene's, and the float32 DEM's 32-bps stream.
     Returns {kernel: largest difference}; raises on a difference."""
     from ..codec.device_encoder import encode_flac_device
     from ..ops import gather, pack
@@ -499,7 +556,7 @@ def check_kernels(dev, frames: int = 16) -> dict:
     n, F = DECODE_N, frames * N // DECODE_N
     blob = encode_flac_device(scene.reshape(-1, 1), 96000, 16, 5, blocksize=n,
                               zero_point=1 << 15, compute_md5=False, device=dev)
-    chunk = decode_chunk(blob, F, dev)
+    chunk = chunk_inputs(blob, F, dev)
     windows, errs["gather_windows"] = check_gather(chunk["body"], chunk["word0"], chunk["W"])
     lanes = with_hostile_lane(windows, lane_headers(chunk, windows), chunk["W"], n)
     (zs, _, _), errs["rice_scan_full"], _ = check_rice_scan(lanes["words"], lanes["args"], n,
@@ -508,12 +565,26 @@ def check_kernels(dev, frames: int = 16) -> dict:
                                                "level-5")["err"]
     _, errs["restore"], _ = check_restore(
         [zs, lanes["order"], lanes["coefs"], lanes["shift"], lanes["warm"], n])
+    sub = check_subframe(*with_hostile_frames(windows, chunk_table(chunk)), 16, n, "level-5")
+    errs["subframe_parse"], errs["subframe_finish"] = sub["parse_err"], sub["finish_err"]
+
+    # the stereo scene at level 8: two channels a frame, side-coded ones among them
+    st_blob = encode_flac_device(np.ascontiguousarray(make_stereo(size).reshape(2, -1).T),
+                                 96000, 16, 8, blocksize=n, zero_point=1 << 15,
+                                 compute_md5=False, device=dev)
+    chunk = chunk_inputs(st_blob, F, dev)
+    windows = gather.gather_windows(chunk["body"], chunk["word0"], chunk["W"])
+    sub = check_subframe(*with_hostile_frames(windows, chunk_table(chunk)), 16, n, "stereo")
+    if not ((sub["p"]["chan"][:F] >= 8) & (sub["p"]["chan"][:F] <= 10)).any():
+        raise AssertionError("no frame of the stereo chunk has a side channel")
+    errs["subframe_parse"] = max(errs["subframe_parse"], sub["parse_err"])
+    errs["subframe_finish"] = max(errs["subframe_finish"], sub["finish_err"])
 
     # the wide lane: a float32 DEM's 32-bps frames (the float32_bits fold)
     folded, _ = normalize_lossless(make_dem(size).reshape(-1, 1))
     wide_blob = encode_flac_device(folded, 96000, 32, 5, blocksize=n, compute_md5=False,
                                    device=dev)
-    chunk = decode_chunk(wide_blob, F, dev, wide=True)
+    chunk = chunk_inputs(wide_blob, F, dev, wide=True)
     windows = gather.gather_windows(chunk["body"], chunk["word0"], chunk["W"])
     h = lane_headers(chunk, windows)
     args = [h[k] for k in SCAN_KEYS]
@@ -522,6 +593,9 @@ def check_kernels(dev, frames: int = 16) -> dict:
     zs = check_rice_scan(windows, args, n, F)[0][0]
     _, e, _ = check_restore([zs, h["order"], h["coefs"], h["shift"], h["warm"], n], wide=True)
     errs["restore"] = max(errs["restore"], e)
+    sub = check_subframe(*with_hostile_frames(windows, chunk_table(chunk)), 32, n, "wide")
+    errs["subframe_parse"] = max(errs["subframe_parse"], sub["parse_err"])
+    errs["subframe_finish"] = max(errs["subframe_finish"], sub["finish_err"])
     return errs
 
 

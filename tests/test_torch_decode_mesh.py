@@ -106,11 +106,11 @@ def test_a_flagged_tile_alone_takes_decode_flac_device(monkeypatch):
     rng = np.random.default_rng(24)
     xs = _ragged_stereo(rng)[:3]
     blobs = [_encode(x, level=1) for x in xs]
-    real = device_decoder.decode_frames_device
+    real = device_decoder.decode_chunk
     calls = []
 
-    def flag_tile_1(windows, bit_base, sf, fe, **kw):
-        samples, err = real(windows, bit_base, sf, fe, **kw)
+    def flag_tile_1(windows, tab, **kw):
+        samples, err = real(windows, tab, **kw)
         calls.append(len(err))
         err = err.clone()
         if len(calls) == 1:
@@ -119,9 +119,9 @@ def test_a_flagged_tile_alone_takes_decode_flac_device(monkeypatch):
             err[:] = True     # tile 1 alone, in decode_flac_device
         return samples, err
 
-    monkeypatch.setattr(device_decoder, "decode_frames_device", flag_tile_1)
+    monkeypatch.setattr(device_decoder, "decode_chunk", flag_tile_1)
     got = decode_flac_batch_mesh(blobs, mesh=tile_mesh(devices=["cpu"]))
-    assert calls == [9, 3]      # one group in one chunk, then tile 1 alone
+    assert calls == [16, 4]     # one group in one chunk, then tile 1 alone (padded chunks)
     assert [d.route for d in got] == ["device", "host: in-graph structure flag", "device"]
     for d, x in zip(got, xs):
         assert np.array_equal(d.samples.numpy(), x)

@@ -990,8 +990,8 @@ def test_chunk_graph_replay_equals_eager_plan_and_emit(cuda, case):
     F, N, C = x.shape
     frames = 8 if case == "partial" else F
     graph = check_chunk_graph(x, numbers, layout, zero, cuda, frames=frames)
-    assert graph.rice_launches > 0 and graph.pack_launches.get("v1", 0) > 0
-    assert graph.pack_launches.get(device_emit.SAMPLE_PACK_VERSION, 0) > 0
+    assert graph.launches.get("rice_cost", 0) > 0 and graph.launches.get("pack.v1", 0) > 0
+    assert graph.launches.get(f"pack.{device_emit.SAMPLE_PACK_VERSION}", 0) > 0
     n_words = device_emit.worst_case_words(frames, C, N, 16 + layout["mid_side"])
     dtype = getattr(torch, x.dtype.name)
     assert chunk_graph.chunk_graph(cuda, frames, C, N, dtype, n_words, zero, layout) is graph
@@ -1080,3 +1080,232 @@ def test_chunk_graph_cache_is_bounded_by_pool_bytes(cuda, monkeypatch):
     assert encode_flac_device(x, 44100, 16, **kw) == first
     chunk_graph.clear()
     assert not chunk_graph._CACHE
+
+
+def _subframe_signal(case: str, rng, n: int = 4096) -> tuple:
+    """(samples, bps) of a stream whose frames mix every subframe kind:
+    smooth (LPC), a sawtooth (fixed), constant and full-range noise
+    (verbatim); "stereo" frames also take each channel assignment (L/R,
+    L/S, R/S, M/S); "wide" is 32 bits per sample."""
+    t = np.arange(n)
+    smooth = (3000 * np.sin(t / 7.0) + np.cumsum(rng.integers(-3, 4, n))).astype(np.int64)
+    if case == "stereo":
+        a, d = rng.normal(0, 1000, n), rng.normal(0, 300, n)
+        frames = [np.stack([rng.integers(-20000, 20000, n), rng.integers(-20, 20, n)], 1),
+                  np.stack([smooth, smooth + rng.integers(-500, 500, n)], 1),
+                  np.stack([smooth + rng.integers(-500, 500, n), smooth], 1),
+                  np.stack([a + d, a - d], 1).astype(np.int64),
+                  np.stack([np.full(n, 77), np.full(n, -5)], 1),
+                  rng.integers(-32768, 32768, (n, 2))]
+        return np.concatenate(frames), 16
+    bps = 32 if case == "wide" else 16
+    scale = 1 << (bps - 16)
+    frames = [smooth * scale, np.full(n, -7 * scale),
+              rng.integers(-(1 << (bps - 1)), 1 << (bps - 1), n),
+              (t % 61 - 30) * 11 * scale, smooth[::-1] * scale]
+    return np.concatenate(frames)[:, None], bps
+
+
+def _decode_inputs(cuda, case: str, seed: int = 0) -> dict:
+    """A real chunk's decode inputs on the card: the windows (K10) and the
+    (2 + C, B) frame table of every full frame of a level-5 stream of
+    :func:`_subframe_signal`; "hostile" is the stereo chunk with random
+    words past two frames' headers and a reserved channel code."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.codec.device_decoder import prepare_frames
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
+    from flac_raster_tpu_torch.ops.device_decode import frame_table
+
+    rng = np.random.default_rng(seed)
+    x, bps = _subframe_signal("stereo" if case == "hostile" else case, rng)
+    blob = encode_flac_device(x, 44100, bps, compression_level=5, device=cuda)
+    si, blocks, start = parse_flac_metadata(blob)
+    F, C = si.total_samples // si.max_blocksize, si.channels
+    prep = prepare_frames(blob, start, parse_layout_block(blocks), si, 0, F, cuda)
+    windows = gather.gather_windows(prep["body"], prep["word0"], prep["W"])
+    tab = frame_table(prep["bit_base"], prep["sf"], prep["fe"], C)
+    if case == "hostile":
+        bb = tab[0].cpu().numpy()
+        noise = rng.integers(0, 1 << 32, (2, 64), dtype=np.uint64).astype(np.uint32)
+        for k, f in enumerate((1, 3)):
+            w0 = int(bb[f]) // 32 + 2
+            windows[f, w0 : w0 + 64] = torch.from_numpy(noise[k].view(np.int32)).to(cuda)
+        bit = int(bb[4]) + 24                     # channel code 0001 -> 1101 (reserved)
+        windows[4, bit >> 5] ^= torch.tensor(np.uint32(0xC0000000 >> (bit & 31)).view(np.int32),
+                                             device=cuda)
+    return dict(windows=windows, tab=tab, C=C, bps=bps, N=si.max_blocksize)
+
+
+@pytest.mark.parametrize("case", ["mono", "stereo", "wide", "hostile"])
+def test_subframe_kernels_match_plain(cuda, case):
+    """The subframe parse and finish kernels against their plain versions,
+    tolerance 0, on a real chunk of every subframe kind (and, for stereo,
+    every channel assignment) and on hostile lanes: the parse's every
+    output; then, from the Rice scan and the restore of the kernel's parse,
+    the finish's samples and err flags."""
+    from flac_raster_tpu_torch.ops import subframe
+    from flac_raster_tpu_torch.ops.device_codec import MAX_DEVICE_BPS
+    from flac_raster_tpu_torch.ops.device_decode import SCAN_KEYS
+
+    d = _decode_inputs(cuda, case)
+    windows, tab, C, bps, N = d["windows"], d["tab"], d["C"], d["bps"], d["N"]
+    wide = bps > MAX_DEVICE_BPS
+    before = dict(subframe.LAUNCHES)
+    p = subframe.subframe_parse(windows, tab[0], tab[2:], C=C, bps=bps, N=N)
+    ref = subframe.subframe_parse_reference(windows, tab[0], tab[2:], C=C, bps=bps, N=N)
+    torch.cuda.synchronize()
+    for key in ("lane32", "flags", "coefs", "warm", "chan"):
+        assert torch.equal(p[key], ref[key]), key
+    assert p["is_const"].any() and p["is_verb"].any() and p["is_rice"].any()
+    if case == "stereo":
+        assert set(p["chan"].tolist()) >= {1, 8, 9, 10}
+    words = windows if C == 1 else windows.repeat(C, 1)
+    zs, rend, err = rice_scan.rice_scan_full(words, *(p[k] for k in SCAN_KEYS), N)
+    sig = restore.restore(zs, p["order"], p["coefs"], p["shift"], p["warm"], N, wide=wide)
+    out, e = subframe.subframe_finish(windows, p, sig, rend, err, tab[2:], tab[1], C=C, N=N,
+                                      wide=wide)
+    out_p, e_p = subframe.finish_reference(windows, p, sig, rend, err, tab[2:], tab[1], C=C,
+                                           N=N, wide=wide)
+    torch.cuda.synchronize()
+    assert torch.equal(e, e_p) and torch.equal(out, out_p)
+    assert e.any() == (case == "hostile")
+    assert subframe.LAUNCHES == {"parse": before["parse"] + 1, "finish": before["finish"] + 1}
+
+
+def test_subframe_kernels_match_plain_at_the_main_path_shape(cuda):
+    """The parse and finish kernels on a 4096-frame level-5 chunk of the
+    synthetic terrain (the decoder's chunk of the main path) plus two
+    frames of random words, one of them verbatim-typed
+    (``selftest.check_subframe``): tolerance 0, no err on the file's
+    frames, err on both hostile ones."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.utils.selftest import (
+        check_subframe, chunk_inputs, chunk_table, make_raster, with_hostile_frames,
+    )
+
+    scene = make_raster(4096)
+    blob = encode_flac_device(scene.reshape(-1, 1), 44100, 16, compression_level=5,
+                              zero_point=1 << 15, compute_md5=False, device=cuda)
+    chunk = chunk_inputs(blob, 4096, cuda)
+    windows = gather.gather_windows(chunk["body"], chunk["word0"], chunk["W"])
+    sub = check_subframe(*with_hostile_frames(windows, chunk_table(chunk)), 16, 4096, "main")
+    assert sub["parse_err"] == sub["finish_err"] == 0
+    err = sub["out"][1].tolist()
+    assert not any(err[:4096]) and err[4096:] == [True, True]
+    assert np.array_equal(sub["out"][0][:4096].reshape(-1).cpu().numpy(),
+                          scene.reshape(-1).astype(np.int64) - (1 << 15))
+
+
+@pytest.mark.parametrize("scan", ["full", "group"])
+@pytest.mark.parametrize("case", ["mono", "stereo", "wide"])
+def test_decode_graph_replay_equals_eager(cuda, case, scan):
+    """A chunk's decode graph (codec/decode_graph) replays to the samples
+    and err flags of an eager decode_chunk of the same windows and table,
+    also after a replay of other windows (the frames reversed), for both
+    Rice engines; a replay adds its captured launches of the parse, the
+    Rice engine, the restore and the finish to their counters."""
+    from flac_raster_tpu_torch.codec import chunk_graph
+    from flac_raster_tpu_torch.codec.decode_graph import decode_graph
+    from flac_raster_tpu_torch.ops.device_decode import decode_chunk
+
+    d = _decode_inputs(cuda, case)
+    windows, tab, C, bps, N = d["windows"], d["tab"], d["C"], d["bps"], d["N"]
+    B, W = windows.shape
+    want = decode_chunk(windows, tab, C=C, bps=bps, N=N, scan=scan)
+    graph = decode_graph(cuda, B, W, C, bps, N, scan)
+    engine = "rice_scan" if scan == "full" else "rice_group"
+    assert {"subframe.parse", "subframe.finish", "restore", engine} <= set(graph.launches)
+    for w, t in ((windows.flip(0), tab.flip(1)), (windows, tab)):
+        with graph.use():
+            graph.windows.copy_(w)
+            graph.tab.copy_(t)
+            before = chunk_graph.launch_counts()
+            graph.replay()
+            after = chunk_graph.launch_counts()
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in after.items() if n != before[k]} == graph.launches
+    assert torch.equal(graph.samples, want[0]) and torch.equal(graph.err, want[1])
+    assert not want[1].any()
+    assert decode_graph(cuda, B, W, C, bps, N, scan) is graph
+
+
+def _decode_blob(cuda, seed: int, frames: int, channels: int = 1) -> tuple:
+    """(samples, a level-5 file of ``frames`` frames of 4096 and a tail)."""
+    from flac_raster_tpu_torch import encode_flac_device
+
+    x = _two_band(seed, frames)[:, :channels]
+    return x, encode_flac_device(x, 44100, 16, compression_level=5, device=cuda)
+
+
+def test_partial_decode_chunk_runs_in_a_power_of_two_graph(cuda):
+    """An 11-frame file in chunks of 4: the last chunk of 3 frames runs in
+    the graph of 4 (its padded row repeats the chunk's first frame and is
+    sliced off); the samples equal the CPU's and the signal, and only
+    graphs of 4 frames are captured, once."""
+    from flac_raster_tpu_torch import decode_flac_device
+    from flac_raster_tpu_torch.codec import chunk_graph
+
+    x, blob = _decode_blob(cuda, 5, 11, 2)
+    chunk_graph.clear()
+    n = len(chunk_graph.CAPTURES)
+    for scan in ("full", "group"):
+        gpu = decode_flac_device(blob, chunk_frames=4, device=cuda, scan=scan)
+        assert gpu.route == "device" and np.array_equal(gpu.samples.cpu().numpy(), x)
+    cpu = decode_flac_device(blob, chunk_frames=4, device="cpu")
+    assert torch.equal(gpu.samples.cpu(), cpu.samples)
+    decode_flac_device(blob, chunk_frames=4, device=cuda)
+    caps = chunk_graph.CAPTURES[n:]
+    assert [(c["kind"], c["F"], c["scan"]) for c in caps] == [("decode", 4, "full"),
+                                                             ("decode", 4, "group")]
+    chunk_graph.clear()
+
+
+def test_concurrent_decodes_of_one_shape_on_card_stay_apart(cuda):
+    """Eight threads decode two files of one shape at once through the
+    shared graph of that shape: every raster equals its file's decode
+    alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flac_raster_tpu_torch import decode_flac_device
+
+    blobs = [_decode_blob(cuda, s, 9, 2)[1] for s in (1, 2)]
+    alone = [decode_flac_device(b, chunk_frames=4, device=cuda).samples.cpu() for b in blobs]
+    assert not torch.equal(alone[0], alone[1])
+    jobs = [0, 1] * 4
+
+    def decode(k):
+        out = decode_flac_device(blobs[k], chunk_frames=4, device=cuda).samples
+        torch.cuda.current_stream().synchronize()
+        return out.cpu()
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        got = list(pool.map(decode, jobs))
+    assert all(torch.equal(g, alone[k]) for g, k in zip(got, jobs))
+
+
+def test_failed_decode_capture_raises(cuda, monkeypatch):
+    """A host synchronisation inside a decode chunk cannot be captured: the
+    decode raises (no eager fallback, no host route), no graph of it is
+    cached, and the next decode captures and decodes as before."""
+    from flac_raster_tpu_torch import decode_flac_device
+    from flac_raster_tpu_torch.codec import chunk_graph, device_decoder
+    from flac_raster_tpu_torch.ops import device_decode
+
+    x, blob = _decode_blob(cuda, 6, 3)
+    finish = device_decode.subframe_finish
+
+    def syncing(*args, **kw):
+        out = finish(*args, **kw)
+        out[1].any().item()                # a host sync: refused while capturing
+        return out
+
+    chunk_graph.clear()
+    routes = device_decoder.HOST_ROUTES
+    monkeypatch.setattr(device_decode, "subframe_finish", syncing)
+    with pytest.raises(RuntimeError):
+        decode_flac_device(blob, device=cuda)
+    assert device_decoder.HOST_ROUTES == routes and not chunk_graph._CACHE
+    monkeypatch.setattr(device_decode, "subframe_finish", finish)
+    got = decode_flac_device(blob, device=cuda)
+    assert got.route == "device" and np.array_equal(got.samples.cpu().numpy(), x)
+    chunk_graph.clear()
