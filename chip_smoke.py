@@ -29,13 +29,19 @@ is not 0:
   6. each decode kernel against its plain PyTorch version on the card, on
      one real 4096-frame chunk of the phase-3 file (plus a lane of random
      words for the Rice scan, and two frames of random words, one of them
-     verbatim, for the subframe parse and finish): outputs must be
-     identical; all are timed with CUDA events (the Rice scan on the file's
-     lanes, and again with the hostile lane);
+     verbatim, for the subframe parse and finish, which are also held on a
+     partial chunk of 761 frames padded to 1024, and the finish on its
+     writes into slots): outputs must be identical; all are timed with CUDA
+     events (the Rice scan on the file's lanes, and again with the hostile
+     lane), the subframe kernels also on the device, warm and with L2
+     flushed, beside a copy of the same samples (the finish) and an empty
+     kernel (the parse);
   7. the decode path: ``RasterFLACConverter(device="cuda")
      .decode_bytes_device`` of the phase-3 file, once to warm up and once
-     timed; it must stay on the device route, launch all three decode
-     kernels, and return the scene exactly, on the card;
+     timed; it must stay on the device route, launch every decode kernel,
+     and return the scene exactly, on the card; profiled, with each
+     kernel's device time a chunk, and no copy of a chunk's samples into
+     their slots (the finish writes them there);
   8. the main path once with each sample pack version: identical bytes;
   9. the tail path: a 10980x10980 uint16 scene (a Sentinel-2 10 m band;
      29 433 frames and a 2 832-sample tail) at level 5: timed encode,
@@ -120,7 +126,14 @@ is not 0:
      counts N times the captured ones, replay and eager timed (CUDA events
      and the host's enqueue); a warm encode that captures nothing, timed
      three times with the peak of device memory and profiled; every
-     capture's time and pool memory.
+     capture's time and pool memory;
+ 23. the decode graphs (``codec/decode_graph``): the files of phases 3, 9,
+     10 and 11 with both Rice engines by replay, eagerly and with the
+     finish writing into the graph's own buffer plus ``index_copy_`` (the
+     path of a chunk on another card than the output), in turns, every
+     raster equal bit for bit; the same two paths on the batch decode of
+     the phase-16 file's 484 tiles; the batched bbox read, replay and
+     eager, in turns; the captures and the memory they reserve.
 
 Phases 18 and 19 also time the CRC-16 check the row reads and the device
 bbox read make: the range decode and the batch decode of every tile with
@@ -185,6 +198,7 @@ from flac_raster_tpu_torch.utils.selftest import (
     make_raster,
     make_stereo,
     midside_tokens,
+    padded_chunk,
     rice_cost_input,
     with_hostile_frames,
     with_hostile_lane,
@@ -714,16 +728,13 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     # on the device with the L2 cache (50 MB) flushed before each launch by
     # a 256 MB write, as the decode finds it after the body's upload
     flush = torch.empty(1 << 26, dtype=torch.int32, device=dev)
-
-    def cold(width):
-        for _ in range(20):
-            flush.zero_()
-            gather.gather_windows(body, word0, width)
-
-    a_cold_ms = profiled_kernel_ms(lambda: cold(W), "gather_windows_kernel")
+    a_cold_ms = profiled_kernel_ms(
+        flushed(lambda: gather.gather_windows(body, word0, W), flush), "gather_windows_kernel")
     # the same at the width the frames need, before its power-of-two bucket
     W_need = unbucketed_window(chunk)
-    a_need_ms = profiled_kernel_ms(lambda: cold(W_need), "gather_windows_kernel")
+    a_need_ms = profiled_kernel_ms(
+        flushed(lambda: gather.gather_windows(body, word0, W_need), flush),
+        "gather_windows_kernel")
     del flush
     a_plain_ms = cuda_ms(lambda: gather.gather_windows_reference(body, word0, W), iters=3, warmup=1)
     # the library yardstick: one advanced-indexing read of a zero-padded body
@@ -818,26 +829,102 @@ def unbucketed_window(chunk: dict) -> int:
     return -(-W // 4) * 4
 
 
+def profiled_device_ms(fn, calls: int) -> float | None:
+    """Device time in ms of every kernel one fn() launches, over ``calls``
+    (torch.profiler); None where the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and e.count)
+    return us / calls / 1e3 if us else None
+
+
+def flushed(fn, flush, calls: int = 20):
+    """``calls`` runs of fn(), each after a write of ``flush`` (256 MB)
+    that evicts the card's 50 MB L2, as a decode finds its inputs."""
+    def run():
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+    return run
+
+
+def flushed_events_ms(fn, flush, calls: int = 20) -> float:
+    """Mean CUDA-event time in ms of fn() with the L2 evicted before each
+    call: an event pair around each call, the flush outside it (a call
+    whose host enqueue outlasts the flush shows that enqueue)."""
+    import torch
+
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(calls)]
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / calls
+
+
+PADDED_FRAMES = 761     # a partial chunk: runs in the graph of 1024 frames
+
+
 def subframe_phase(windows, tab, bps: int, N: int, label: str) -> list[dict]:
     """The subframe parse and finish kernels against their plain versions
-    on a chunk plus two hostile frames (``check_subframe``), then each
-    timed with CUDA events on the chunk's own frames, beside its bound:
-    the parse reads each frame's table entry and the header bits of each
-    subframe (from its start to its first Rice code) and writes its ~140
-    bytes of outputs; the finish reads the restore's samples on Rice
-    lanes and the window bits of verbatim lanes and writes the (B, N, C)
-    samples."""
+    (``check_subframe``: every output, the finish's samples returned and
+    written into slots through a tensor and through a pointer word) on a
+    chunk plus two hostile frames and on a padded partial chunk (its first
+    761 frames in the decoder's padding to 1024 rows, slot -1 on the
+    padded ones); then each timed on the chunk's own frames by CUDA events
+    and on the device (torch.profiler), warm and with L2 flushed, beside
+    its bound.  The finish is timed as the main path runs it, each frame
+    into its slot of a batch output through a pointer word; beside it,
+    the yardstick of its data movement alone: one ``copy_`` of the same
+    samples from the (N, L) buffer into (B, N, C) (no select, no checks,
+    no undo: not the same function, so not a library call).  The parse is
+    timed beside an empty kernel launched on its grid by the same route,
+    the floor of any launch.  Bounds: the parse reads each frame's table
+    entry and the header bits of each subframe (from its start to its
+    first Rice code) and writes its ~140 bytes of outputs; the finish
+    reads the restore's samples on Rice lanes and the window bits of
+    verbatim lanes and writes the (B, N, C) samples."""
+    import torch
+
+    from flac_raster_tpu_torch import _build
     from flac_raster_tpu_torch.ops import restore, rice_scan, subframe
     from flac_raster_tpu_torch.ops.device_codec import MAX_DEVICE_BPS
 
     C, wide = tab.shape[0] - 2, bps > MAX_DEVICE_BPS
     sub = check_subframe(*with_hostile_frames(windows, tab), bps, N, label)
     hostile = sub["out"][1][-2:].tolist()
+    B, L, dev = windows.shape[0], C * windows.shape[0], windows.device
+    part = min(PADDED_FRAMES, B)
+    pw, pt, pdst = padded_chunk(windows, tab, part)
+    padded = check_subframe(pw, pt, bps, N, f"{label} padded", dst=pdst)
     bit_base, fe, sf = tab[0], tab[1], tab[2:]
-    B, L = windows.shape[0], C * windows.shape[0]
     p = subframe.subframe_parse(windows, bit_base, sf, C=C, bps=bps, N=N)
-    p_ms = cuda_ms(lambda: subframe.subframe_parse(windows, bit_base, sf, C=C, bps=bps, N=N),
-                   iters=20)
+
+    def parse():
+        subframe.subframe_parse(windows, bit_base, sf, C=C, bps=bps, N=N)
+
+    def empty():
+        _build.check(_build.kernels().frtt_empty_launch(
+            L, torch.cuda.current_stream(dev).cuda_stream), "empty_launch")
+
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=dev)
+    p_ms = cuda_ms(parse, iters=20)
+    # each kernel on the device alone (torch.profiler): the parse's event
+    # time is its wrapper's host enqueue
+    p_dev = profiled_kernel_ms(lambda: [parse() for _ in range(20)], "subframe_parse_kernel")
+    p_cold = profiled_kernel_ms(flushed(parse, flush), "subframe_parse_kernel")
+    p_ev_cold = flushed_events_ms(parse, flush)
+    e_ms = cuda_ms(empty, iters=20)
+    e_dev = profiled_kernel_ms(lambda: [empty() for _ in range(20)], "empty_kernel")
     # bytes: bit_base and sf read, the header bits of each subframe, the
     # outputs (lane32, flags, coefs, warm, chan); operations: ~24 a 32-bit
     # read (header, LPC meta, residual meta, the warm-ups, the coefficients)
@@ -845,46 +932,79 @@ def subframe_phase(windows, tab, bps: int, N: int, label: str) -> list[dict]:
     out_bytes = L * (4 * len(subframe.ROW32) + len(subframe.FLAGS) + 2 * 4 * 12) + 4 * B
     reads = 6 * L + 2 * int(p["order"].long().sum())
     p_bound = bound(4 * B + 4 * L + header_bits / 8 + out_bytes, 24 * reads)
+
     words = windows if C == 1 else windows.repeat(C, 1)
     zs, rend, err = rice_scan.rice_scan_full(words, *(p[k] for k in SCAN_KEYS), N)
     sig = restore.restore(zs, p["order"], p["coefs"], p["shift"], p["warm"], N, wide=wide)
     args = (windows, p, sig, rend, err, sf, fe)
-    samples, e = subframe.subframe_finish(*args, C=C, N=N, wide=wide)
+    slots = torch.empty((B, N, C), dtype=torch.int32, device=dev)
+    word = torch.full((1,), slots.data_ptr(), dtype=torch.int64, device=dev)
+    dst = torch.arange(B, dtype=torch.int32, device=dev)
+
+    def finish():
+        return subframe.subframe_finish(*args, C=C, N=N, wide=wide, out_ptr=word, dst=dst)
+
+    def transpose():
+        slots.copy_(sig.t().view(N, C, B).permute(2, 0, 1))
+
+    _, e = finish()
     if e.any():
         raise AssertionError(f"subframe_finish flagged a frame of the valid {label} file")
-    f_ms = cuda_ms(lambda: subframe.subframe_finish(*args, C=C, N=N, wide=wide), iters=20)
-    # each kernel on the device alone (torch.profiler): the parse's event
-    # time is its wrapper's host enqueue
-    p_dev = profiled_kernel_ms(lambda: [subframe.subframe_parse(
-        windows, bit_base, sf, C=C, bps=bps, N=N) for _ in range(20)], "subframe_parse_kernel")
-    f_dev = profiled_kernel_ms(lambda: [subframe.subframe_finish(*args, C=C, N=N, wide=wide)
-                                        for _ in range(20)], "subframe_finish_kernel")
+    if not torch.equal(slots, sub["out"][0][:B]):
+        raise AssertionError(f"the finish through a pointer word differs on the {label} chunk")
+    f_ms = cuda_ms(finish, iters=20)
+    f_dev = profiled_kernel_ms(lambda: [finish() for _ in range(20)], "subframe_finish_kernel")
+    f_cold = profiled_kernel_ms(flushed(finish, flush), "subframe_finish_kernel")
+    f_ev_cold = flushed_events_ms(finish, flush)
+    t_ms = cuda_ms(transpose, iters=20)
+    t_dev = profiled_device_ms(lambda: [transpose() for _ in range(20)], 20)
+    t_cold = profiled_device_ms(flushed(transpose, flush), 20)
+    if t_cold is not None:       # the flushes' own kernels are in it: take them out
+        t_cold -= profiled_device_ms(flushed(lambda: None, flush), 20)
+    del flush, slots
     n_rice, n_verb = int(p["is_rice"].sum()), int(p["is_verb"].sum())
     eb = int(p["eb"].max())
     # bytes: the restore's samples of the Rice lanes and the verbatim lanes'
     # window bits read, the samples written, ~20 bytes of lane parameters
     # and ~9 of frame fields; operations: a select and a store a sample, 6
     # with a 2-channel frame's undo
-    f_bound = bound(4 * N * n_rice + N * eb / 8 * n_verb + samples.numel() * 4 + L * 20 + B * 9,
-                    (6 if C == 2 else 3) * samples.numel())
-    dev_txt = {k: "not measured" if t is None else f"{t:.4f} ms ({share(b, t)})"
-               for k, t, b in (("parse", p_dev, p_bound), ("finish", f_dev, f_bound))}
-    log(f"subframe_parse ({label}, {L} lanes): identical to plain, two hostile frames "
-        f"included (tolerance 0); kernel {p_ms:.4f} ms by events ({share(p_bound, p_ms)}), "
-        f"on the device {dev_txt['parse']}, plain {sub['parse_plain_ms']:.4f} ms (one call), "
-        f"bound {p_bound}")
+    f_bound = bound(4 * N * n_rice + N * eb / 8 * n_verb + B * N * C * 4 + L * 20 + B * 9,
+                    (6 if C == 2 else 3) * B * N * C)
+
+    def txt(t, b=None):
+        if t is None:
+            return "not measured"
+        return f"{t:.4f} ms" + ("" if b is None else f" ({share(b, t)})")
+
+    log(f"subframe_parse ({label}, {L} lanes): identical to plain, two hostile frames and a "
+        f"{part}-frame chunk padded to {pw.shape[0]} included (tolerance 0); kernel "
+        f"{p_ms:.4f} ms by events ({share(p_bound, p_ms)}), {p_ev_cold:.4f} with L2 flushed, "
+        f"on the device warm "
+        f"{txt(p_dev, p_bound)}, L2 flushed {txt(p_cold, p_bound)}; an empty kernel on its "
+        f"grid by the same route {e_ms:.4f} ms by events, {txt(e_dev)} on the device; plain "
+        f"{sub['parse_plain_ms']:.4f} ms (one call), bound {p_bound}")
     log(f"subframe_finish ({label}, {B} frames, {n_rice} Rice / {n_verb} verbatim lanes): "
-        f"identical to plain, the hostile frames' err {hostile} (tolerance 0); kernel "
-        f"{f_ms:.4f} ms by events ({share(f_bound, f_ms)}), on the device "
-        f"{dev_txt['finish']}, plain {sub['finish_plain_ms']:.4f} ms (one call), "
-        f"bound {f_bound}")
+        f"identical to plain, returned and into slots (a tensor, a pointer word, the padded "
+        f"chunk's -1 rows left), the hostile frames' err {hostile} (tolerance 0); into slots "
+        f"through the word {f_ms:.4f} ms by events ({share(f_bound, f_ms)}), {f_ev_cold:.4f} "
+        f"with L2 flushed, on the device "
+        f"warm {txt(f_dev, f_bound)}, L2 flushed {txt(f_cold, f_bound)}; yardstick, the "
+        f"data movement alone (one copy_ of the samples into (B, N, C)): {t_ms:.4f} ms by "
+        f"events, on the device warm {txt(t_dev)}, L2 flushed {txt(t_cold)}; plain "
+        f"{sub['finish_plain_ms']:.4f} ms (one call), bound {f_bound}")
     return [
         kernel_entry("subframe_parse", "subframe_parse.cu",
-                     "flac_raster_tpu/ops/device_decode.py:164", sub["parse_err"], p_ms,
-                     sub["parse_plain_ms"], p_bound, ms_device=p_dev),
+                     "flac_raster_tpu/ops/device_decode.py:164",
+                     max(sub["parse_err"], padded["parse_err"]), p_ms, sub["parse_plain_ms"],
+                     p_bound, ms_l2_flushed=p_ev_cold, ms_device=p_dev,
+                     ms_device_l2_flushed=p_cold, empty_ms=e_ms,
+                     empty_ms_device=e_dev),
         kernel_entry("subframe_finish", "subframe_finish.cu",
-                     "flac_raster_tpu/ops/device_decode.py:642", sub["finish_err"], f_ms,
-                     sub["finish_plain_ms"], f_bound, ms_device=f_dev),
+                     "flac_raster_tpu/ops/device_decode.py:642",
+                     max(sub["finish_err"], padded["finish_err"]), f_ms,
+                     sub["finish_plain_ms"], f_bound, ms_l2_flushed=f_ev_cold, ms_device=f_dev,
+                     ms_device_l2_flushed=f_cold, transpose_ms=t_ms,
+                     transpose_ms_device=t_dev, transpose_ms_device_l2_flushed=t_cold),
     ]
 
 
@@ -967,8 +1087,9 @@ def phase_wide_kernels(blob: bytes, dev) -> dict:
 def lane_fields(entries: list[dict], lane: str) -> dict:
     """subframe_phase's entries of one lane as extra fields of the kernels
     line, by kernel name: ``ms_<lane>``, ``ms_device_<lane>``, ... ."""
-    keys = ("ms", "ms_device", "plain_ms", "bound_ms", "max_abs_err")
-    return {k["name"]: {f"{key}_{lane}": k[key] for key in keys} for k in entries}
+    keys = ("ms", "ms_l2_flushed", "ms_device", "ms_device_l2_flushed", "plain_ms", "bound_ms",
+            "max_abs_err", "transpose_ms_device", "empty_ms_device")
+    return {k["name"]: {f"{key}_{lane}": k[key] for key in keys if key in k} for k in entries}
 
 
 def fold_lane(kernels: list[dict], fields: dict, lane: str) -> None:
@@ -1008,12 +1129,15 @@ def phase_stereo_kernels(blob: bytes, dev) -> dict:
 
 
 def profile_decode(blob: bytes) -> None:
-    """Device busy share, runtime sync/copy calls and host stages of one
-    more decode (torch.profiler); informational only."""
+    """Device busy share, runtime sync/copy calls, host stages and each
+    kernel's device time a chunk of one more decode (torch.profiler); it
+    fails if a chunk's samples were copied into their slots
+    (``index_copy_``: the finish writes them there on one card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
 
     conv = RasterFLACConverter(device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1028,6 +1152,17 @@ def profile_decode(blob: bytes) -> None:
     )
     log(f"decode profile: wall {wall * 1e3:.1f} ms under the profiler, device kernel time "
         f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}% busy)")
+    # the finish writes each chunk into its slots: no copy of a chunk's samples
+    copies = [e.key for e in averages if "index_copy" in e.key]
+    if copies:
+        raise AssertionError(f"the decode copied chunks into their slots: {copies}")
+    si = parse_flac_metadata(blob)[0]
+    chunks = -(-(si.total_samples // si.max_blocksize) // 4096)
+    per_chunk = {e.key[:48]: round(e.self_device_time_total / 1e3 / chunks, 4)
+                 for e in sorted(averages, key=lambda e: -e.self_device_time_total)
+                 if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+                 and not e.key.startswith("frtt.")}
+    log(f"  device ms a chunk ({chunks} chunks), no slot copy: {per_chunk}")
     # each synchronising call holds the host until the card has caught up
     api = {e.key: e.count for e in averages
            if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")}
@@ -1879,13 +2014,14 @@ def graph_phase(scene: np.ndarray, dev, card: str) -> None:
 DECODE_GRAPH_SCANS = ("full", "group")
 
 
-def eager_decode(self, graph, windows, rows32, C, bps, scan):
+def eager_decode(self, graph, windows, rows32, out, C, bps, scan):
     """``FrameBatch._decode`` without the replay: the same kernels on the
-    same padded chunk's windows, launched one by one (phase 23's
-    comparison)."""
+    same padded chunk's windows, launched one by one, the finish writing
+    into the same slots (phase 23's comparison)."""
     from flac_raster_tpu_torch.ops.device_decode import decode_chunk
 
-    return decode_chunk(windows, rows32.contiguous(), C=C, bps=bps, N=self.N, scan=scan)
+    return decode_chunk(windows, rows32[: 2 + C].contiguous(), C=C, bps=bps, N=self.N,
+                        scan=scan, out=out, dst=rows32[2 + C].contiguous())[1]
 
 
 @contextlib.contextmanager
@@ -1899,6 +2035,21 @@ def eager_chunks():
         yield
     finally:
         FrameBatch._decode = saved
+
+
+@contextlib.contextmanager
+def copied_chunks():
+    """Decode every chunk as a chunk on another device than the output is
+    decoded: into the graph's own buffer, then ``index_copy_`` into its
+    slots (the path before the finish wrote the slots itself)."""
+    from flac_raster_tpu_torch.codec.device_decoder import FrameBatch
+
+    saved = FrameBatch.writes_slots
+    FrameBatch.writes_slots = lambda self, dev: False
+    try:
+        yield
+    finally:
+        FrameBatch.writes_slots = saved
 
 
 def decode_stages(fn) -> dict:
@@ -1924,7 +2075,11 @@ def decode_graph_phase(files: dict, scene: np.ndarray, work: Path, card: str, de
     each one's ``frtt.decode.*`` host stages; the file's first chunk by
     replay and eagerly, CUDA events and the host's enqueue a chunk, equal
     outputs; the busy share as the chunks' event time over the timed
-    decode's wall.  Then the batched bbox read of the phase-16 file in
+    decode's wall; the decode with the finish writing the slots against
+    the copy path (``copied_chunks``: the graph's own buffer, then
+    ``index_copy_``), in turns, the rasters equal bit for bit.  Then the
+    same two paths on the batch decode of every tile of the phase-16 file,
+    in turns, every tile equal; the batched bbox read of that file in
     turns, replay and eager; every decode capture's time and pool; and the
     memory reserved after an encode, then the decodes, in one process."""
     import torch
@@ -1936,6 +2091,7 @@ def decode_graph_phase(files: dict, scene: np.ndarray, work: Path, card: str, de
     from flac_raster_tpu_torch.ops import gather
     from flac_raster_tpu_torch.ops.device_codec import MAX_DEVICE_BPS
     from flac_raster_tpu_torch.ops.device_decode import decode_chunk
+    from flac_raster_tpu_torch.parallel import decode_flac_batch_mesh, tile_mesh
 
     conv = RasterFLACConverter(device="cuda")
     for label, blob in files.items():
@@ -1975,22 +2131,39 @@ def decode_graph_phase(files: dict, scene: np.ndarray, work: Path, card: str, de
                                                DECODE_KERNELS[scan], count=False)
                 stages_e = decode_stages(lambda: conv.decode_bytes_device(blob, scan=scan))
             stages = decode_stages(lambda: conv.decode_bytes_device(blob, scan=scan))
+            # the finish writing the slots against the graph's own buffer and
+            # index_copy_ (the path of a chunk on another card), in turns
+            turns = {"slots": [], "copy": []}
+            for mode in ("slots", "copy", "copy", "slots"):
+                with copied_chunks() if mode == "copy" else contextlib.nullcontext():
+                    (other, _), t, _ = run_path(f"the {label} decode ({scan}, {mode})",
+                                                lambda: conv.decode_bytes_device(blob, scan=scan),
+                                                DECODE_KERNELS[scan], count=False)
+                turns[mode].append(round(host.nbytes / 1e6 / t, 2))
+                if other.cpu().numpy().tobytes() != host.tobytes():
+                    raise AssertionError(f"the {label} decode ({scan}, {mode}) differs")
+                del other
             if not (data.cpu().numpy().tobytes() == eager.cpu().numpy().tobytes()
                     == host.tobytes()):
                 raise AssertionError(f"the {label} decode ({scan}): replay, eager and the host "
                                      "decoder differ")
             del data, eager
+            log(f"  {label} ({scan}): the finish into the slots and the graph's buffer plus "
+                f"index_copy_, rasters equal bit for bit; MB/s in turns {turns} | {card}")
             graph = decode_graph(dev, *windows.shape, C, bps, N, scan)
+            out = torch.empty((windows.shape[0], N, C), dtype=torch.int32, device=dev)
             with graph.use():
                 graph.windows.copy_(windows)
-                graph.tab.copy_(tab)
+                graph.tab[: 2 + C].copy_(tab)
+                graph.tab[2 + C].copy_(torch.arange(windows.shape[0], device=dev))
+                graph.point_at(out)
             want = decode_chunk(windows, tab, C=C, bps=bps, N=N, scan=scan)
             replay_ms, replay_host = events_and_host_ms(graph.replay, 10)
             eager_ms, eager_host = events_and_host_ms(
                 lambda: decode_chunk(windows, tab, C=C, bps=bps, N=N, scan=scan), 5)
-            if not (torch.equal(graph.samples, want[0]) and torch.equal(graph.err, want[1])):
+            if not (torch.equal(out, want[0]) and torch.equal(graph.err, want[1])):
                 raise AssertionError(f"the {label} first chunk's replay differs from eager")
-            del graph, want
+            del graph, want, out
             mb = host.nbytes / 1e6
             log(f"  {label} ({scan}), {chunks} chunks: replay {mb / dt:.2f} MB/s, eager "
                 f"{mb / dt_e:.2f} MB/s, rasters equal bit for bit (replay, eager, host); "
@@ -2004,6 +2177,24 @@ def decode_graph_phase(files: dict, scene: np.ndarray, work: Path, card: str, de
         torch.cuda.empty_cache()
 
     st = SpatialFLACStreamer(work / "band.spatial.flac", device=dev)
+    # the batch of every tile: the finish into the slots against the copy
+    # path, bit for bit, in turns
+    blobs = st._tiles(WHOLE_RASTER)[1]
+    one = tile_mesh(devices=[dev])
+    got, times = {}, {"slots": [], "copy": []}
+    for mode in ("slots", "copy", "copy", "slots"):
+        with copied_chunks() if mode == "copy" else contextlib.nullcontext():
+            out, t, _ = run_path(f"the batch decode of every tile ({mode})", lambda: (
+                decode_flac_batch_mesh(blobs, mesh=one)), DECODE_KERNELS["full"],
+                count=mode == "slots")
+        times[mode].append(round(t / len(blobs) * 1e3, 3))
+        got.setdefault(mode, out)
+    if not all(a.route == b.route and torch.equal(a.samples, b.samples)
+               for a, b in zip(got["slots"], got["copy"])):
+        raise AssertionError("the batch decode into the slots differs from the copy path")
+    log(f"  decode_flac_batch_mesh of all {len(blobs)} tiles: the finish into the slots and "
+        f"the copy path, every tile equal bit for bit; ms a tile in turns {times} | {card}")
+    del got, out
     times = {"replay": [], "eager": []}
     for mode in ("replay", "eager", "eager", "replay"):
         ctx = eager_chunks() if mode == "eager" else contextlib.nullcontext()

@@ -143,8 +143,10 @@ def kernels():
                                         vp, vp, vp]
     lib.frtt_subframe_parse.restype = ctypes.c_int
     lib.frtt_subframe_finish.argtypes = [vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp,
-                                         vp, vp, vp, vp, vp]
+                                         vp, vp, vp, vp, vp, vp, vp]
     lib.frtt_subframe_finish.restype = ctypes.c_int
+    lib.frtt_empty_launch.argtypes = [i64, vp]
+    lib.frtt_empty_launch.restype = ctypes.c_int
     lib.frtt_error_string.argtypes = [ctypes.c_int]
     lib.frtt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -232,11 +232,16 @@ class FrameBatch:
     gather (K10), then ``ops/device_decode.decode_chunk`` -- on a CUDA
     device one replay of the chunk shape's graph (``codec/decode_graph``),
     on the CPU its plain versions; a partial chunk padded to a power of
-    two, its padded rows repeating its first frame -- each chunk's samples
-    copied into one output buffer (on the row's first device) in which
-    every stream owns contiguous slots of N rows, one more for a tail.
-    :meth:`put_tails` decodes the tails on the host; :meth:`flagged` pulls
-    the err flags, once a device.
+    two, its padded rows repeating its first frame with slot -1.  The
+    output is one buffer (on the row's first device) in which every stream
+    owns contiguous slots of N rows, one more for a tail.  Where a chunk
+    runs on the output's device (every chunk of a one-device row, on a
+    card or on the CPU) the finish writes each frame's samples straight
+    into its slot; where it runs on another device of the row, its samples
+    land in a buffer on its own device (the graph's ``scratch``) and are
+    copied into their slots (``index_copy_``; :attr:`slot_copies` counts
+    those chunks).  :meth:`put_tails` decodes the tails on the host;
+    :meth:`flagged` pulls the err flags, once a device.
     """
 
     def __init__(self, blobs, plans, row, N: int, C: int, bps: int, verify_crc: bool,
@@ -249,6 +254,7 @@ class FrameBatch:
         out_dev = row[0]
         self.out = torch.empty((int(n_slots.sum()) * N, C), dtype=torch.int32, device=out_dev)
         self.errs: dict = {}
+        self.slot_copies = 0    # chunks whose samples were copied into their slots
         # every stream's frames in range, each from its word-aligned first byte
         spans = [(p["lo"], int(p["offsets"][p["f1"]])) for p in plans]
         n_words = np.array([(hi - lo + 3) // 4 for lo, hi in spans], np.int64)
@@ -275,18 +281,26 @@ class FrameBatch:
             return
         raw.view(np.uint32).byteswap(inplace=True)      # big-endian words
         chunks = chunk_schedule(n_frames, len(row), chunk)
+        direct = [self.writes_slots(row[s]) for s, _, _, _ in chunks]
         # one int64 table column a chunk row (padded rows repeat the chunk's
-        # first frame): word0, destination slot, bit_base, fe, sf
+        # first frame): word0, destination slot, bit_base, fe, sf, and the
+        # finish's slot: the destination slot where the chunk writes the
+        # output itself, else the row in its own buffer; -1 on padded rows
         cols = np.concatenate([np.r_[f0 : f0 + B, np.full(Bp - B, f0)]
                                for _, f0, B, Bp in chunks])
         cat = {k: np.concatenate([p["tables"][k] for p in plans])
                for k in ("word0", "bit_base", "fe", "sf")}
-        tab = np.empty((4 + C, len(cols)), np.int64)
+        tab = np.empty((5 + C, len(cols)), np.int64)
         tab[0] = (cat["word0"] + np.repeat(base, F))[cols]
         tab[1] = (np.arange(n_frames) + np.repeat(self.slot0 - (np.cumsum(F) - F), F))[cols]
         tab[2] = cat["bit_base"][cols]
         tab[3] = cat["fe"][cols]
-        tab[4:] = cat["sf"][cols].T
+        tab[4 : 4 + C] = cat["sf"][cols].T
+        tab[4 + C] = -1
+        r0 = 0
+        for (_, _, B, Bp), d in zip(chunks, direct):
+            tab[4 + C, r0 : r0 + B] = tab[1, r0 : r0 + B] if d else np.arange(B)
+            r0 += Bp
         W = window_words(int(max(p["sizes"][p["f0"] : p["f0"] + p["F"]].max()
                                  for p in plans if p["F"])))
         tab_host = torch.from_numpy(tab)
@@ -301,21 +315,32 @@ class FrameBatch:
                     else:
                         uploads[dev] = (host, tab_host, tab_host[2:].to(torch.int32))
         r0 = 0
-        for s, f0, B, Bp in chunks:
+        for (s, f0, B, Bp), d in zip(chunks, direct):
             dev = row[s]
             body, tab_dev, tab32 = uploads[dev]
             word0, rows32 = tab_dev[0, r0 : r0 + Bp], tab32[:, r0 : r0 + Bp]
-            dst = tab_dev[1, r0 : r0 + B].to(out_dev)
+            dst = None if d else tab_dev[1, r0 : r0 + B].to(out_dev)
             r0 += Bp
             with device_scope(dev):
                 err = self._chunk(body, word0, rows32, dst, slots, B, Bp, W, C, bps, scan)
             self.errs.setdefault(dev, []).append((f0, f0 + B, err))
 
+    def writes_slots(self, dev: torch.device) -> bool:
+        """Whether a chunk on ``dev`` has the finish write its samples
+        straight into the output's slots: where the output lies on ``dev``
+        (a card named without its index is the current one, as its
+        tensors are)."""
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev == self.out.device
+
     def _chunk(self, body, word0, rows32, dst, slots, B: int, Bp: int, W: int, C: int,
                bps: int, scan: str) -> torch.Tensor:
         """One chunk: the window gather (into the chunk graph's static
-        windows on a card), :meth:`_decode`, the samples copied to their
-        slots; returns the chunk's err flags (a copy)."""
+        windows on a card), then :meth:`_decode` into ``slots`` (``dst``
+        None), or into a buffer on the chunk's device whose first B rows
+        are then copied into slots ``dst``; returns the chunk's err flags
+        (a copy)."""
         graph = None
         if body.device.type == "cuda":
             with record_function("frtt.decode.capture"):
@@ -325,19 +350,30 @@ class FrameBatch:
                 windows = gather_windows(body, word0, W,
                                          out=None if graph is None else graph.windows)
             with record_function("frtt.decode.frames"):
-                samples, err = self._decode(graph, windows, rows32, C, bps, scan)
-                slots.index_copy_(0, dst, samples[:B].to(slots.device))
+                if dst is None:
+                    err = self._decode(graph, windows, rows32, slots, C, bps, scan)
+                else:
+                    own = (torch.empty((Bp, self.N, C), dtype=torch.int32) if graph is None
+                           else graph.scratch())
+                    err = self._decode(graph, windows, rows32, own, C, bps, scan)
+                    slots.index_copy_(0, dst, own[:B].to(slots.device))
+                    self.slot_copies += 1
                 return err[:B].clone()
 
-    def _decode(self, graph, windows, rows32, C: int, bps: int, scan: str):
-        """The chunk's decode from its windows and (2 + C, Bp) table rows:
-        one replay of its graph on a card (the rows copied in), the
-        kernels' plain versions on the CPU.  Returns (samples, err)."""
+    def _decode(self, graph, windows, rows32, out, C: int, bps: int, scan: str):
+        """The chunk's decode from its windows and (3 + C, Bp) table rows
+        (``decode_chunk``'s table, then each frame's slot of ``out``, a
+        (slots, N, C) int32 tensor on the chunk's device): one replay of
+        its graph on a card (the rows copied in, the graph pointed at
+        ``out``), the kernels' plain versions on the CPU.  Returns the err
+        flags."""
         if graph is None:
-            return decode_chunk(windows, rows32.contiguous(), C=C, bps=bps, N=self.N, scan=scan)
+            return decode_chunk(windows, rows32[: 2 + C].contiguous(), C=C, bps=bps, N=self.N,
+                                scan=scan, out=out, dst=rows32[2 + C].contiguous())[1]
         graph.tab.copy_(rows32)
+        graph.point_at(out)
         graph.replay()
-        return graph.samples, graph.err
+        return graph.err
 
     def put_tails(self, verify_crc: bool) -> None:
         """Decode the streams' tail frames on the host and copy them into

@@ -18,7 +18,9 @@ frames then decode in one batched pass of C*B lanes, four kernels a chunk
   * the residual placement and predictor restore (``ops/restore``);
   * the constant or verbatim samples (the window read on verbatim lanes
     only, with no host synchronisation), the subframe-end checks and the
-    channel undo (``ops/subframe.subframe_finish``).
+    channel undo (``ops/subframe.subframe_finish``), which writes each
+    frame's samples into its slot of the caller's output where it is given
+    one.
 
 Every step is a kernel with a fixed launch, so a chunk's decode is captured
 as one CUDA graph (``codec/decode_graph``), as the JAX package compiles it
@@ -60,7 +62,8 @@ SCAN_ENGINES = {"full": rice_scan_full, "group": rice_scan_grouped}
 SCAN_KEYS = ("rstart", "err", "is_rice", "order", "n_codes", "pbits", "psm")
 
 
-def decode_chunk(windows, tab, *, C: int, bps: int, N: int, scan: str = "full"):
+def decode_chunk(windows, tab, *, C: int, bps: int, N: int, scan: str = "full", out=None,
+                 dst=None, out_ptr=None):
     """Decode a chunk of full frames from its windows and its frame table.
 
     Args:
@@ -68,8 +71,15 @@ def decode_chunk(windows, tab, *, C: int, bps: int, N: int, scan: str = "full"):
         tab: (2 + C, B) int32 -- rows ``bit_base``, ``frame_end`` and the C
             subframe starts (as :func:`decode_frames_device` takes them).
         C / bps / N / scan: as :func:`decode_frames_device`.
+        dst / out / out_ptr: where the finish writes each frame's samples
+            (``ops/subframe.subframe_finish``): with ``dst`` (B,) int32,
+            frame b into slot ``dst[b]`` (-1: not written) of ``out``, a
+            (slots, N, C) int32 tensor, or, on a card, of the output whose
+            address the (1,) int64 ``out_ptr`` holds; with none of them, a
+            new (B, N, C) tensor.
     Returns:
-        samples (B, N, C) int32, err (B,) bool.
+        samples (B, N, C) int32 (``out`` with ``dst``; None with
+        ``out_ptr``), err (B,) bool.
     """
     wide = bps > MAX_DEVICE_BPS
     bit_base, fe, sf = tab[0], tab[1], tab[2:]
@@ -78,7 +88,8 @@ def decode_chunk(windows, tab, *, C: int, bps: int, N: int, scan: str = "full"):
     words = windows if C == 1 else windows.repeat(C, 1)
     zs, rend, err = SCAN_ENGINES[scan](words, *(p[k] for k in SCAN_KEYS), N)
     sig = restore(zs, p["order"], p["coefs"], p["shift"], p["warm"], N, wide=wide)
-    return subframe_finish(windows, p, sig, rend, err, sf, fe, C=C, N=N, wide=wide)
+    return subframe_finish(windows, p, sig, rend, err, sf, fe, C=C, N=N, wide=wide, out=out,
+                           dst=dst, out_ptr=out_ptr)
 
 
 def frame_table(bit_base, sf_start, frame_end, C: int) -> torch.Tensor:

@@ -21,7 +21,10 @@ is channel c of frame b and reads row b of the (B, W) int32 windows.
 * :func:`subframe_finish` -- each sample from the constant, the window
   (verbatim lanes only) or the restore's output, the subframe-end checks,
   and the left/side, right/side and mid/side undo in wrapped int32:
-  (samples (B, N, C) int32, err (B,) bool).
+  (samples (B, N, C) int32, err (B,) bool); or, given each frame's
+  destination slot, the samples written straight into the batch's
+  (slots, N, C) output -- a tensor, or on a card the address in a device
+  word, which a captured graph reads at every replay.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version, :func:`subframe_parse_reference` (over :func:`parse_header`) or
@@ -40,11 +43,12 @@ from .device_codec import MAX_DEVICE_BPS
 from .restore import MAX_ORDER
 
 __all__ = ["subframe_parse", "subframe_parse_reference", "subframe_finish", "finish_reference",
-           "parse_header", "ROW32", "FLAGS", "LAUNCHES"]
+           "parse_header", "ROW32", "FLAGS", "LAUNCHES", "MAX_CHANNELS"]
 
 ROW32 = ("rstart", "order", "n_codes", "pbits", "psm", "shift", "const_val", "pos0", "eb")
 FLAGS = ("err", "is_rice", "is_const", "is_verb")
 LAUNCHES = {"parse": 0, "finish": 0}  # kernel launches since import (or a caller's reset)
+MAX_CHANNELS = 8    # the finish kernel's instantiations (the device decode's channels)
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,7 +133,7 @@ def _named(lane32, flags, coefs, warm, chan) -> dict:
             **dict(zip(ROW32, lane32)), **dict(zip(FLAGS, flags))}
 
 
-def _check_parse(windows, bit_base, sf, C: int, N: int):
+def _check_parse(windows, bit_base, sf, C: int, bps: int, N: int):
     if windows.dtype != torch.int32 or windows.dim() != 2 or not windows.is_contiguous():
         raise ValueError("windows must be a contiguous (B, W) int32 tensor")
     B = windows.shape[0]
@@ -140,12 +144,16 @@ def _check_parse(windows, bit_base, sf, C: int, N: int):
             raise ValueError(f"{name} lies on another device than windows")
     if N < 1 or N & (N - 1):
         raise ValueError(f"blocksize {N} is not a power of two")
+    # the kernel reads a header from the 21 words at its start: warm-up
+    # samples of at most 33 bits (a side channel of 32 bits per sample)
+    if not 1 <= bps <= 32:
+        raise ValueError(f"{bps} bits per sample: the parse takes 1 to 32")
 
 
 def subframe_parse_reference(windows, bit_base, sf, *, C: int, bps: int, N: int) -> dict:
     """Plain PyTorch version: the channel assignment, then :func:`parse_header`
     on the int64 words of every lane (the windows repeated per channel)."""
-    _check_parse(windows, bit_base, sf, C, N)
+    _check_parse(windows, bit_base, sf, C, bps, N)
     wide = bps > MAX_DEVICE_BPS
     B = windows.shape[0]
     words = windows.long() & M32
@@ -183,7 +191,7 @@ def subframe_parse(windows, bit_base, sf, *, C: int, bps: int, N: int) -> dict:
         return subframe_parse_reference(windows, bit_base, sf, C=C, bps=bps, N=N)
     if windows.device.type != "cuda":
         raise ValueError(f"unsupported device {windows.device}")
-    _check_parse(windows, bit_base, sf, C, N)
+    _check_parse(windows, bit_base, sf, C, bps, N)
     B, W = windows.shape
     dev = windows.device
     lane32 = torch.empty((len(ROW32), C * B), dtype=torch.int32, device=dev)
@@ -203,7 +211,8 @@ def subframe_parse(windows, bit_base, sf, *, C: int, bps: int, N: int) -> dict:
     return _named(lane32, flags, coefs, warm, chan)
 
 
-def _check_finish(windows, p, sig, rend, err_l, sf, fe, C: int, N: int):
+def _check_finish(windows, p, sig, rend, err_l, sf, fe, C: int, N: int, out=None, dst=None,
+                  out_ptr=None):
     B = windows.shape[0]
     L = C * B
     want = {"lane32": (p["lane32"], torch.int32, (len(ROW32), L)),
@@ -211,6 +220,8 @@ def _check_finish(windows, p, sig, rend, err_l, sf, fe, C: int, N: int):
             "chan": (p["chan"], torch.int32, (B,)), "rend": (rend, torch.int32, (L,)),
             "err": (err_l, torch.bool, (L,)), "sf": (sf, torch.int32, (C, B)),
             "fe": (fe, torch.int32, (B,))}
+    if dst is not None:
+        want["dst"] = (dst, torch.int32, (B,))
     for name, (t, dt, shape) in want.items():
         if t.dtype != dt or t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {shape} {dt} tensor")
@@ -218,14 +229,33 @@ def _check_finish(windows, p, sig, rend, err_l, sf, fe, C: int, N: int):
             raise ValueError(f"{name} lies on another device than windows")
     if sig.dtype != torch.int32 or sig.shape != (L, N) or sig.device != windows.device:
         raise ValueError(f"sig must be a ({L}, {N}) int32 tensor on the device of windows")
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"{C} channels: the finish takes 1 to {MAX_CHANNELS}")
+    if dst is None:
+        if out is not None or out_ptr is not None:
+            raise ValueError("out and out_ptr take a dst")
+        return
+    if (out is None) == (out_ptr is None):
+        raise ValueError("with dst, give one of out and out_ptr")
+    if out is not None and (out.dtype != torch.int32 or out.dim() != 3
+                            or out.shape[1:] != (N, C) or not out.is_contiguous()
+                            or out.device != windows.device):
+        raise ValueError(f"out must be a contiguous (slots, {N}, {C}) int32 tensor on the "
+                         "device of windows")
+    if out_ptr is not None and (out_ptr.dtype != torch.int64 or out_ptr.shape != (1,)
+                                or out_ptr.device != windows.device
+                                or out_ptr.device.type != "cuda"):
+        raise ValueError("out_ptr must be a (1,) int64 tensor on the card of windows")
 
 
 def finish_reference(windows, p: dict, sig, rend, err_l, sf, fe, *, C: int, N: int,
-                     wide: bool = False):
+                     wide: bool = False, out=None, dst=None):
     """Plain PyTorch version: the select (the verbatim samples read, in
     int64, on the verbatim lanes only), the end checks and the channel
-    undo; (samples (B, N, C) int32, err (B,) bool)."""
-    _check_finish(windows, p, sig, rend, err_l, sf, fe, C, N)
+    undo; (samples (B, N, C) int32, err (B,) bool), or, with ``dst``, each
+    frame's samples written into slot ``dst[b]`` of ``out`` (frames whose
+    slot is -1 left out) and (out, err) returned."""
+    _check_finish(windows, p, sig, rend, err_l, sf, fe, C, N, out, dst)
     B = windows.shape[0]
     is_const, is_verb = p["is_const"], p["is_verb"]
     pos0, eb = p["pos0"].long(), p["eb"].long()
@@ -255,13 +285,19 @@ def finish_reference(windows, p: dict, sig, rend, err_l, sf, fe, *, C: int, N: i
                                               torch.where(ms, wrap32(mid2 + b) >> 1, a)))
         right = torch.where(ls, wrap32(a - b), torch.where(rs, b, torch.where(
             ms, wrap32(mid2 - b) >> 1, b)))
-        return torch.stack([left, right], dim=2).to(torch.int32), err
-    return sigs.permute(1, 2, 0).contiguous(), err
+        samples = torch.stack([left, right], dim=2).to(torch.int32)
+    else:
+        samples = sigs.permute(1, 2, 0).contiguous()
+    if dst is None:
+        return samples, err
+    keep = dst >= 0
+    out[dst[keep].long()] = samples[keep]
+    return out, err
 
 
 def subframe_finish(windows, p: dict, sig, rend, err_l, sf, fe, *, C: int, N: int,
-                    wide: bool = False):
-    """(samples (B, N, C) int32, err (B,) bool) of a chunk; see the module.
+                    wide: bool = False, out=None, dst=None, out_ptr=None):
+    """(samples, err (B,) bool) of a chunk; see the module.
 
     Args:
         windows: (B, W) int32 window words.
@@ -271,24 +307,42 @@ def subframe_finish(windows, p: dict, sig, rend, err_l, sf, fe, *, C: int, N: in
         rend, err_l: (L,) int32 / bool, the Rice engine's end positions and
             err flags (which carry the parse's).
         sf: (C, B) int32 subframe starts; fe: (B,) int32 frame ends.
+        dst: (B,) int32 destination slot of each frame, -1 for a frame
+            not to be written (a padded chunk's rows); None: the samples
+            come back as a new (B, N, C) tensor.
+        out: with ``dst``, the (slots, N, C) int32 output whose slot
+            ``dst[b]`` takes frame b's samples.
+        out_ptr: with ``dst`` instead of ``out`` (on a card only), a (1,)
+            int64 tensor holding the address of such an output, which the
+            kernel reads when it runs: a captured graph writes wherever
+            the word points at its replay.
+    Returns:
+        (the new (B, N, C) samples, or ``out``, or None with ``out_ptr``;
+        err).
     """
     if windows.device.type == "cpu":
-        return finish_reference(windows, p, sig, rend, err_l, sf, fe, C=C, N=N, wide=wide)
+        if out_ptr is not None:
+            raise ValueError("out_ptr is an address on a card; give out on the CPU")
+        return finish_reference(windows, p, sig, rend, err_l, sf, fe, C=C, N=N, wide=wide,
+                                out=out, dst=dst)
     if windows.device.type != "cuda":
         raise ValueError(f"unsupported device {windows.device}")
-    _check_finish(windows, p, sig, rend, err_l, sf, fe, C, N)
+    _check_finish(windows, p, sig, rend, err_l, sf, fe, C, N, out, dst, out_ptr)
     if not sig.t().is_contiguous():
         raise ValueError("sig must be a view of a sample-major (N, L) buffer")
     B, W = windows.shape
-    out = torch.empty((B, N, C), dtype=torch.int32, device=windows.device)
+    if dst is None:
+        out = torch.empty((B, N, C), dtype=torch.int32, device=windows.device)
     err = torch.empty(B, dtype=torch.bool, device=windows.device)
     if B and N:
         stream = torch.cuda.current_stream(windows.device).cuda_stream
         rc = _build.kernels().frtt_subframe_finish(
             windows.data_ptr(), B, W, N, C, int(wide), p["lane32"].data_ptr(),
             p["flags"].data_ptr(), p["chan"].data_ptr(), sig.data_ptr(), rend.data_ptr(),
-            err_l.data_ptr(), sf.data_ptr(), fe.data_ptr(), out.data_ptr(), err.data_ptr(),
-            stream,
+            err_l.data_ptr(), sf.data_ptr(), fe.data_ptr(),
+            None if dst is None else dst.data_ptr(),
+            None if out_ptr is None else out_ptr.data_ptr(),
+            None if out is None else out.data_ptr(), err.data_ptr(), stream,
         )
         _build.check(rc, "subframe_finish")
         LAUNCHES["finish"] += 1

@@ -41,7 +41,7 @@ from ..ops.device_decode import SCAN_KEYS
 
 __all__ = ["main", "make_raster", "make_dem", "make_minmax_dem", "make_stereo",
            "check_kernels", "check_plan", "check_encode", "check_decode", "check_chunk_graph",
-           "check_subframe", "chunk_table", "with_hostile_frames", "card_rows"]
+           "check_subframe", "chunk_table", "with_hostile_frames", "padded_chunk", "card_rows"]
 
 M32 = 0xFFFFFFFF
 SIZE_ENVELOPE = 1.0025
@@ -401,12 +401,29 @@ def with_hostile_frames(windows: torch.Tensor, tab: torch.Tensor, seed: int = 7)
     return words, torch.cat([tab, torch.from_numpy(col.astype(np.int32)).to(dev)], dim=1)
 
 
-def check_subframe(windows: torch.Tensor, tab: torch.Tensor, bps: int, N: int, label: str):
+def padded_chunk(windows: torch.Tensor, tab: torch.Tensor, B: int):
+    """The chunk's first B frames as the decoder runs a partial chunk: padded
+    to the next power of two, the padded rows repeating its first frame;
+    with each frame's slot (its index; -1 on the padded rows)."""
+    Bp = 1 << (B - 1).bit_length()
+    rows = torch.cat([torch.arange(B), torch.zeros(Bp - B, dtype=torch.int64)]).to(windows.device)
+    dst = torch.cat([torch.arange(B), torch.full((Bp - B,), -1)]).to(torch.int32)
+    return windows[rows].contiguous(), tab[:, rows].contiguous(), dst.to(windows.device)
+
+
+def check_subframe(windows: torch.Tensor, tab: torch.Tensor, bps: int, N: int, label: str,
+                   dst: torch.Tensor | None = None):
     """The subframe parse and finish kernels against their plain versions,
     tolerance 0: every output of the parse; then, from the Rice scan (K8)
     and the restore of the kernel's parse, the finish's samples and err
-    flags.  Returns the kernel outputs (``p``, ``sig``, ``rend``, ``err``,
-    ``out``), the largest differences (0) and the plain versions' ms."""
+    flags, returned as a (B, N, C) tensor and written into the slots of a
+    larger output -- given as a tensor and through a device word holding
+    its address, as a decode graph gives it -- each frame into slot
+    ``dst[b]`` (by default the frames in reversed order into every other
+    slot, the last frame's slot -1, as a padded row's), the other slots
+    left as they were.  Returns the kernel outputs (``p``, ``sig``,
+    ``rend``, ``err``, ``out``), the largest differences (0) and the plain
+    versions' ms."""
     from ..ops import restore, rice_scan, subframe
     from ..ops.device_codec import MAX_DEVICE_BPS
 
@@ -428,6 +445,30 @@ def check_subframe(windows: torch.Tensor, tab: torch.Tensor, bps: int, N: int, l
                                   dev)
     if not (torch.equal(out[0], out_p[0]) and torch.equal(out[1], out_p[1])):
         raise AssertionError(f"subframe_finish differs from plain on the {label} chunk")
+    B = windows.shape[0]
+    if dst is None:
+        dst = (2 * torch.arange(B - 1, -1, -1, device=dev) + 1).to(torch.int32)
+        dst[-1] = -1
+    keep = dst >= 0
+    want = torch.full((2 * B, N, C), -7, dtype=torch.int32, device=dev)
+    want[dst[keep].long()] = out_p[0][keep]
+
+    def plain(slots):
+        subframe.finish_reference(*args, C=C, N=N, wide=wide, out=slots, dst=dst)
+
+    def kernel(slots):
+        subframe.subframe_finish(*args, C=C, N=N, wide=wide, out=slots, dst=dst)
+
+    def through_word(slots):
+        word = torch.full((1,), slots.data_ptr(), dtype=torch.int64, device=dev)
+        subframe.subframe_finish(*args, C=C, N=N, wide=wide, out_ptr=word, dst=dst)
+
+    for route in (plain, kernel, through_word) if dev.type == "cuda" else (plain,):
+        slots = torch.full_like(want, -7)
+        route(slots)
+        if not torch.equal(slots, want):
+            raise AssertionError(f"subframe_finish's slot writes ({route.__name__}) differ "
+                                 f"from the samples on the {label} chunk")
     return dict(p=p, sig=sig, rend=rend, err=err, out=out, parse_err=_u32_err(p["lane32"],
                 ref["lane32"]), finish_err=_u32_err(out[0], out_p[0]), parse_plain_ms=parse_ms,
                 finish_plain_ms=finish_ms)

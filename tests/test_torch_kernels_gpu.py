@@ -1086,7 +1086,8 @@ def _subframe_signal(case: str, rng, n: int = 4096) -> tuple:
     """(samples, bps) of a stream whose frames mix every subframe kind:
     smooth (LPC), a sawtooth (fixed), constant and full-range noise
     (verbatim); "stereo" frames also take each channel assignment (L/R,
-    L/S, R/S, M/S); "wide" is 32 bits per sample."""
+    L/S, R/S, M/S); "three" is three independent channels of the mono
+    frames; "wide" is 32 bits per sample."""
     t = np.arange(n)
     smooth = (3000 * np.sin(t / 7.0) + np.cumsum(rng.integers(-3, 4, n))).astype(np.int64)
     if case == "stereo":
@@ -1103,7 +1104,10 @@ def _subframe_signal(case: str, rng, n: int = 4096) -> tuple:
     frames = [smooth * scale, np.full(n, -7 * scale),
               rng.integers(-(1 << (bps - 1)), 1 << (bps - 1), n),
               (t % 61 - 30) * 11 * scale, smooth[::-1] * scale]
-    return np.concatenate(frames)[:, None], bps
+    x = np.concatenate(frames)
+    if case == "three":
+        return np.stack([x, np.roll(x, 97) // 3, x[::-1] // 2 - 5], 1), bps
+    return x[:, None], bps
 
 
 def _decode_inputs(cuda, case: str, seed: int = 0) -> dict:
@@ -1136,40 +1140,36 @@ def _decode_inputs(cuda, case: str, seed: int = 0) -> dict:
     return dict(windows=windows, tab=tab, C=C, bps=bps, N=si.max_blocksize)
 
 
-@pytest.mark.parametrize("case", ["mono", "stereo", "wide", "hostile"])
+@pytest.mark.parametrize("case", ["mono", "stereo", "three", "wide", "hostile", "padded"])
 def test_subframe_kernels_match_plain(cuda, case):
     """The subframe parse and finish kernels against their plain versions,
-    tolerance 0, on a real chunk of every subframe kind (and, for stereo,
-    every channel assignment) and on hostile lanes: the parse's every
-    output; then, from the Rice scan and the restore of the kernel's parse,
-    the finish's samples and err flags."""
+    tolerance 0 (``selftest.check_subframe``), on a real chunk of every
+    subframe kind (and, for stereo, every channel assignment), on three
+    independent channels, on hostile lanes and on a padded partial chunk
+    (the mono chunk's first 3 frames in 4 rows, slot -1 on the fourth):
+    the parse's every output; then, from the Rice scan and the restore of
+    the kernel's parse, the finish's samples and err flags, returned and
+    written into slots, given as a tensor and through a pointer word."""
     from flac_raster_tpu_torch.ops import subframe
-    from flac_raster_tpu_torch.ops.device_codec import MAX_DEVICE_BPS
-    from flac_raster_tpu_torch.ops.device_decode import SCAN_KEYS
+    from flac_raster_tpu_torch.utils.selftest import check_subframe, padded_chunk
 
-    d = _decode_inputs(cuda, case)
+    d = _decode_inputs(cuda, "mono" if case == "padded" else case)
     windows, tab, C, bps, N = d["windows"], d["tab"], d["C"], d["bps"], d["N"]
-    wide = bps > MAX_DEVICE_BPS
+    dst = None
+    if case == "padded":
+        windows, tab, dst = padded_chunk(windows, tab, 3)
     before = dict(subframe.LAUNCHES)
-    p = subframe.subframe_parse(windows, tab[0], tab[2:], C=C, bps=bps, N=N)
-    ref = subframe.subframe_parse_reference(windows, tab[0], tab[2:], C=C, bps=bps, N=N)
+    sub = check_subframe(windows, tab, bps, N, case, dst=dst)
     torch.cuda.synchronize()
-    for key in ("lane32", "flags", "coefs", "warm", "chan"):
-        assert torch.equal(p[key], ref[key]), key
+    p = sub["p"]
     assert p["is_const"].any() and p["is_verb"].any() and p["is_rice"].any()
     if case == "stereo":
         assert set(p["chan"].tolist()) >= {1, 8, 9, 10}
-    words = windows if C == 1 else windows.repeat(C, 1)
-    zs, rend, err = rice_scan.rice_scan_full(words, *(p[k] for k in SCAN_KEYS), N)
-    sig = restore.restore(zs, p["order"], p["coefs"], p["shift"], p["warm"], N, wide=wide)
-    out, e = subframe.subframe_finish(windows, p, sig, rend, err, tab[2:], tab[1], C=C, N=N,
-                                      wide=wide)
-    out_p, e_p = subframe.finish_reference(windows, p, sig, rend, err, tab[2:], tab[1], C=C,
-                                           N=N, wide=wide)
-    torch.cuda.synchronize()
-    assert torch.equal(e, e_p) and torch.equal(out, out_p)
-    assert e.any() == (case == "hostile")
-    assert subframe.LAUNCHES == {"parse": before["parse"] + 1, "finish": before["finish"] + 1}
+    if case == "three":
+        assert (p["chan"] == 2).all()
+    assert sub["out"][1].any() == (case == "hostile")
+    # the parse once; the finish returning, into slots, through the word
+    assert subframe.LAUNCHES == {"parse": before["parse"] + 1, "finish": before["finish"] + 3}
 
 
 def test_subframe_kernels_match_plain_at_the_main_path_shape(cuda):
@@ -1202,8 +1202,8 @@ def test_decode_graph_replay_equals_eager(cuda, case, scan):
     """A chunk's decode graph (codec/decode_graph) replays to the samples
     and err flags of an eager decode_chunk of the same windows and table,
     also after a replay of other windows (the frames reversed), for both
-    Rice engines; a replay adds its captured launches of the parse, the
-    Rice engine, the restore and the finish to their counters."""
+    Rice engines; a replay adds its captured launches -- one parse, one
+    finish, the Rice engine's and one restore -- to their counters."""
     from flac_raster_tpu_torch.codec import chunk_graph
     from flac_raster_tpu_torch.codec.decode_graph import decode_graph
     from flac_raster_tpu_torch.ops.device_decode import decode_chunk
@@ -1215,18 +1215,87 @@ def test_decode_graph_replay_equals_eager(cuda, case, scan):
     graph = decode_graph(cuda, B, W, C, bps, N, scan)
     engine = "rice_scan" if scan == "full" else "rice_group"
     assert {"subframe.parse", "subframe.finish", "restore", engine} <= set(graph.launches)
+    assert graph.launches["subframe.parse"] == graph.launches["subframe.finish"] == 1
+    out = torch.zeros((B, N, C), dtype=torch.int32, device=cuda)
     for w, t in ((windows.flip(0), tab.flip(1)), (windows, tab)):
         with graph.use():
             graph.windows.copy_(w)
-            graph.tab.copy_(t)
+            graph.tab[: 2 + C].copy_(t)
+            graph.tab[2 + C].copy_(torch.arange(B, device=cuda))
+            graph.point_at(out)
             before = chunk_graph.launch_counts()
             graph.replay()
             after = chunk_graph.launch_counts()
     torch.cuda.synchronize()
     assert {k: n - before[k] for k, n in after.items() if n != before[k]} == graph.launches
-    assert torch.equal(graph.samples, want[0]) and torch.equal(graph.err, want[1])
+    assert torch.equal(out, want[0]) and torch.equal(graph.err, want[1])
     assert not want[1].any()
     assert decode_graph(cuda, B, W, C, bps, N, scan) is graph
+
+
+def test_decode_graph_writes_where_its_pointer_word_points(cuda):
+    """One captured graph replayed into two outputs in turn, with other
+    slots each time (the second in reversed order, its last frame -1):
+    each output holds its frames in its slots and nothing else, so the
+    pointer word is read at every replay, not fixed at the capture."""
+    from flac_raster_tpu_torch.codec.decode_graph import decode_graph
+    from flac_raster_tpu_torch.ops.device_decode import decode_chunk
+
+    d = _decode_inputs(cuda, "stereo", seed=3)
+    windows, tab, C, bps, N = d["windows"], d["tab"], d["C"], d["bps"], d["N"]
+    B, W = windows.shape
+    want = decode_chunk(windows, tab, C=C, bps=bps, N=N)[0]
+    graph = decode_graph(cuda, B, W, C, bps, N, "full")
+    slots = [torch.arange(B) + 3, torch.arange(B - 1, -1, -1)]
+    slots[1][-1] = -1
+    outs = [torch.full((B + 3, N, C), -9, dtype=torch.int32, device=cuda) for _ in slots]
+    for out, dst in zip(outs, slots):
+        with graph.use():
+            graph.windows.copy_(windows)
+            graph.tab[: 2 + C].copy_(tab)
+            graph.tab[2 + C].copy_(dst.to(cuda))
+            graph.point_at(out)
+            graph.replay()
+    torch.cuda.synchronize()
+    for out, dst in zip(outs, slots):
+        expect = torch.full_like(out, -9)
+        keep = dst >= 0
+        expect[dst[keep].to(cuda)] = want[keep.to(cuda)]
+        assert torch.equal(out, expect)
+    with pytest.raises(ValueError, match="out must be"):
+        graph.point_at(torch.zeros((B, N, C + 1), dtype=torch.int32, device=cuda))
+
+
+def test_batch_slot_path_equals_copy_path_on_card(cuda, monkeypatch):
+    """Three streams of 7, 5 and 9 frames in chunks of 4 on a 1 x 2 row of
+    the card: the finish writes every chunk into its slots (no copy), and
+    the output is, byte for byte, the copy path's (each chunk into the
+    graph's own buffer, then ``index_copy_`` into its slots) and the
+    signal's."""
+    from flac_raster_tpu_torch.codec import device_decoder
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
+
+    files = [_decode_blob(cuda, 40 + f, f, 2) for f in (7, 5, 9)]
+
+    def batch():
+        plans = []
+        for _, blob in files:
+            si, blocks, start = parse_flac_metadata(blob)
+            plans.append(device_decoder.stream_plan(blob, si, parse_layout_block(blocks), start))
+        b = device_decoder.FrameBatch([blob for _, blob in files], plans, [cuda, cuda], 4096, 2,
+                                      16, True, "full", 4)
+        b.put_tails(True)
+        torch.cuda.synchronize()
+        return b
+
+    direct = batch()
+    assert direct.slot_copies == 0 and not direct.flagged()
+    monkeypatch.setattr(device_decoder.FrameBatch, "writes_slots", lambda self, dev: False)
+    copied = batch()
+    assert copied.slot_copies == len(device_decoder.chunk_schedule(21, 2, 4))
+    assert not copied.flagged() and torch.equal(direct.out, copied.out)
+    for k, (x, _) in enumerate(files):
+        assert np.array_equal(direct.samples(k).cpu().numpy(), x)
 
 
 def _decode_blob(cuda, seed: int, frames: int, channels: int = 1) -> tuple:
