@@ -1661,6 +1661,8 @@ def rows_phase(scene: np.ndarray, path, card: str, dev) -> None:
         f"{times[True]} | {card}")
 
 
+# phase 19's grids of the card, (rows, columns)
+GRIDS = {"1x1": (1, 1), "1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
 # phase 19's two processes: tiles, samples a tile, blocksize, level
 MULTIHOST_WORKLOAD = ("16", str(SPATIAL_TILE * SPATIAL_TILE), "4096", str(LEVEL))
 
@@ -1686,15 +1688,23 @@ def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
     ``decode_flac_device``'s and, inverted, to the source; tile 0 alone on
     the host route), timed beside the per-tile loop; ``decode_bbox_device``
     (the batch) against the former per-tile bbox decode, in turns, and profiled;
-    ``encode_flac_batch_mesh`` of the interior tiles on 1 x 1 and 1 x 2
-    grids of the card, equal to each other and to ``encode_array_batch``'s
-    frames; two gloo processes on the card through
+    the batch decode on a 2 x 1 grid of the card (its rows built at once),
+    equal tile for tile, and a corrupt frame in a row-2 tile raising
+    ``ValueError`` with its byte; ``encode_flac_batch_mesh`` of the interior
+    tiles on 1 x 1, 1 x 2, 2 x 1 and 2 x 2 grids of the card (the cells at
+    once on ``frtt-cell`` threads; each grid's host s and each cell's stage
+    times printed), every grid's streams equal to each other and to
+    ``encode_array_batch``'s frames, no worker thread left; two gloo
+    processes on the card through
     ``encode_tiles_multihost``, ``assemble_sharded_container`` and
     ``decode_container_tiles_multihost``, the container equal to one
     process's."""
+    import threading
+
     import torch
 
     from flac_raster_tpu_torch import RasterFLACConverter, SpatialFLACStreamer, decode_flac_device
+    from flac_raster_tpu_torch.codec import chunk_graph
     from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata
     from flac_raster_tpu_torch.parallel import (
         decode_flac_batch_mesh, encode_flac_batch_mesh, tile_mesh,
@@ -1726,7 +1736,36 @@ def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
         f"decode_flac_device {t_loop:.3f} s, {t_loop / len(blobs) * 1e3:.3f} ms a tile "
         f"({t_loop / dt:.2f}x); every tile equal to decode_flac_device's and to the source, "
         f"tile 0 alone on the host route | {card}")
+    rows2 = tile_mesh(devices=[dev, dev])
+    decode_flac_batch_mesh(blobs[:8], mesh=rows2)    # warm-up
+    captured = len(chunk_graph.CAPTURES)
+    got, dt2, launches = run_path("the batch decode of every tile on the 2x1 grid",
+                                  lambda: decode_flac_batch_mesh(blobs, mesh=rows2),
+                                  DECODE_KERNELS["full"])
+    if [d.route for d in got] != [d.route for d in ref] or not all(
+            torch.equal(d.samples, r.samples) for d, r in zip(got, ref)):
+        raise AssertionError("the batch decode on the 2x1 grid differs from decode_flac_device")
+    threads = [c["thread"] for c in chunk_graph.CAPTURES[captured:]]
+    if any(t.startswith("frtt-") for t in threads):
+        raise AssertionError(f"the 2x1 grid decode captured graphs on its workers: {threads}")
+    log(f"decode_flac_batch_mesh of all {len(blobs)} tiles on the 2x1 grid of the card (two "
+        f"rows at once): {dt2:.3f} s against {dt:.3f} s on the 1x1 grid, launches {launches}; "
+        f"every tile equal to decode_flac_device's | {card}")
     del got, ref
+    bad_tile = len(blobs) - 40                      # in row 2 of the 2x1 grid
+    start = parse_flac_metadata(blobs[bad_tile])[2]
+    bad = bytearray(blobs[bad_tile])
+    bad[start + 40] ^= 0x10
+    try:
+        decode_flac_batch_mesh(blobs[:bad_tile] + [bytes(bad)] + blobs[bad_tile + 1 :],
+                               mesh=rows2)
+    except ValueError as e:
+        if str(e) != f"frame CRC-16 mismatch at byte {start}":
+            raise AssertionError(f"a corrupt row-2 tile raised {e!r}") from e
+        log(f"a corrupt frame in tile {bad_tile} (row 2 of the 2x1 grid) raised "
+            f"ValueError({str(e)!r})")
+    else:
+        raise AssertionError("a corrupt frame in a row-2 tile decoded without an error")
     # the CRC-16 check decode_bbox_device makes: the batch of every tile
     # with and without it, in turns
     times = {False: [], True: []}
@@ -1760,23 +1799,36 @@ def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
     _, sample_rate, bps, zero, _ = conv._samples(interior[0][None])
     pcm = interior.reshape(len(interior), -1, 1)
     streams = {}
-    for name, grid in (("1x1", one), ("1x2", tile_mesh(devices=[dev, dev], blocks_axis=2))):
+    for name, (rows, cols) in GRIDS.items():
+        grid = tile_mesh(devices=[dev] * (rows * cols), blocks_axis=cols)
+        cells, captured = [], len(chunk_graph.CAPTURES)
         streams[name], dt, launches = run_path(
             f"the {name} grid encode", lambda: encode_flac_batch_mesh(
-                pcm, sample_rate, bps, LEVEL, compute_md5=False, mesh=grid, zero_point=zero),
-            encode_kernels())
+                pcm, sample_rate, bps, LEVEL, compute_md5=False, mesh=grid, zero_point=zero,
+                cell_stages=cells), encode_kernels())
+        threads = [c["thread"] for c in chunk_graph.CAPTURES[captured:]]
+        if any(t.startswith("frtt-") for t in threads):
+            raise AssertionError(f"the {name} grid captured graphs on its workers: {threads}")
         log(f"encode_flac_batch_mesh, {len(pcm)} interior tiles, {name} grid of the card: "
-            f"{dt:.3f} s, {interior.nbytes / dt / 1e6:.2f} MB/s raw, launches {launches}")
+            f"{dt:.3f} s, {interior.nbytes / dt / 1e6:.2f} MB/s raw, launches {launches}, "
+            f"captures {len(threads)} (on the calling thread) | {card}")
+        for c in cells:
+            log(f"  cell tiles {c['tiles']} frames {c['frames']}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in c.items() if k.endswith("_s")))
     batch = conv.encode_array_batch(interior[:, None], compression_level=LEVEL)
 
     def frames_of(blob):
         return blob[parse_flac_metadata(blob)[2] :]
 
-    if streams["1x1"] != streams["1x2"] or [frames_of(b) for b in batch] != [
-            frames_of(b) for b in streams["1x1"]]:
-        raise AssertionError("the 1x1 grid, the 1x2 grid and encode_array_batch differ")
-    log(f"the 1x1 and 1x2 grids give the same {len(pcm)} streams, their frames equal to "
-        f"encode_array_batch's | {card}")
+    if any(streams[name] != streams["1x1"] for name in GRIDS) or [
+            frames_of(b) for b in batch] != [frames_of(b) for b in streams["1x1"]]:
+        raise AssertionError(f"the grids {list(GRIDS)} and encode_array_batch differ")
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(("frtt-cell", "frtt-row", "frtt-drain"))]
+    if left:
+        raise AssertionError(f"worker threads outlived the grid calls: {left}")
+    log(f"the {', '.join(GRIDS)} grids give the same {len(pcm)} streams, their frames equal "
+        f"to encode_array_batch's; no worker thread left | {card}")
     del streams, batch
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))

@@ -35,14 +35,16 @@ shape on several threads stay apart.
 
 One cache serves these graphs and the decode's (``codec/decode_graph``,
 one graph a decode chunk shape): at most ``CACHE_SIZE`` graphs of either
-kind are kept, holding at most ``CACHE_BYTES`` of pool memory between them
-(the newest graph is kept whatever its size), the least recently used
-dropped first, so a warm encode or decode captures nothing, and an encode
-followed by a large decode in one process stays under the one bound.  A
+kind are kept a card, holding at most ``CACHE_BYTES`` of pool memory
+between them on that card (the newest graph is kept whatever its size),
+the least recently used of the card dropped first, so a warm encode or
+decode captures nothing, an encode followed by a large decode in one
+process stays under the one bound, and a grid over many cards keeps each
+card's graphs however many cards it spans.  A
 graph's private pool is not the caching allocator's: :func:`clear` drops
 every graph of both kinds, and ``torch.cuda.empty_cache()`` then returns
 the pools to the card.  ``CAPTURES`` records each capture: its kind, time
-and the memory its pool reserved.
+the memory its pool reserved, and the thread that captured it.
 """
 
 from __future__ import annotations
@@ -61,13 +63,13 @@ __all__ = ["CapturedGraph", "ChunkGraph", "chunk_graph", "cached", "clear", "emi
            "split_head", "launch_counts", "CACHE_SIZE", "CACHE_BYTES", "CAPTURES",
            "SIGNED_VIEWS"]
 
-# graphs kept across calls, encode and decode together: one layout's padded
-# shapes are 2048, 1024, ..., 1 frames, and rasters of mixed sizes may span
-# two sample-rate codes
+# graphs kept a card across calls, encode and decode together: one layout's
+# padded shapes are 2048, 1024, ..., 1 frames, and rasters of mixed sizes
+# may span two sample-rate codes
 CACHE_SIZE = 16
-# pool bytes kept across calls, encode and decode together: a level-8
-# mid-side 2048-frame graph holds 5.8 GB, a level-5 mono one 1.2 GB, a
-# 64-frame one 0.06 GB
+# pool bytes kept a card across calls, encode and decode together: a
+# level-8 mid-side 2048-frame graph holds 5.8 GB, a level-5 mono one 1.2 GB,
+# a 64-frame one 0.06 GB
 CACHE_BYTES = 16 << 30
 CAPTURES: list[dict] = []   # one entry per capture since import
 _CACHE: OrderedDict = OrderedDict()
@@ -163,7 +165,8 @@ class CapturedGraph:
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         CAPTURES.append({**record, "device": str(dev), "capture_s": self.capture_s,
-                         "pool_bytes": self.pool_bytes})
+                         "pool_bytes": self.pool_bytes,
+                         "thread": threading.current_thread().name})
         return out
 
     @contextlib.contextmanager
@@ -214,9 +217,10 @@ class ChunkGraph(CapturedGraph):
 
 
 def cached(key: tuple, make) -> CapturedGraph:
-    """The cached graph of ``key``, made by ``make()`` (a capture) on first
-    use; the least recently used graphs past ``CACHE_SIZE`` graphs or
-    ``CACHE_BYTES`` of pools go."""
+    """The cached graph of ``key`` (its kind, then its device), made by
+    ``make()`` (a capture) on first use; the least recently used graphs of
+    its device past ``CACHE_SIZE`` graphs or ``CACHE_BYTES`` of pools
+    go."""
     with _CACHE_LOCK:
         graph = _CACHE.pop(key, None)
         if graph is None:
@@ -224,9 +228,10 @@ def cached(key: tuple, make) -> CapturedGraph:
         _CACHE[key] = graph
         # a dropped graph's pool goes back to the allocator once no encode
         # or decode holds the graph
-        while len(_CACHE) > 1 and (len(_CACHE) > CACHE_SIZE or sum(
-                g.pool_bytes for g in _CACHE.values()) > CACHE_BYTES):
-            _CACHE.popitem(last=False)
+        mine = [k for k in _CACHE if k[1] == key[1]]     # least recently used first
+        while len(mine) > 1 and (len(mine) > CACHE_SIZE or sum(
+                _CACHE[k].pool_bytes for k in mine) > CACHE_BYTES):
+            del _CACHE[mine.pop(0)]
     return graph
 
 

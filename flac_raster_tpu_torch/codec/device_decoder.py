@@ -51,7 +51,7 @@ from .decoder import (
     md5_of_samples,
 )
 from .decode_graph import decode_graph
-from .device_encoder import device_scope, resolve_device
+from .device_encoder import _indexed, device_scope, resolve_device
 from .encoder import _blocksize_header
 
 logger = logging.getLogger("flac_raster_tpu_torch.device_decoder")
@@ -241,12 +241,18 @@ class FrameBatch:
     land in a buffer on its own device (the graph's ``scratch``) and are
     copied into their slots (``index_copy_``; :attr:`slot_copies` counts
     those chunks).  :meth:`put_tails` decodes the tails on the host;
-    :meth:`flagged` pulls the err flags, once a device.
+    :meth:`flagged` pulls the err flags, once a device.  ``plain_lock``,
+    where given, is held around each chunk's plain decode on the CPU: a
+    caller building batches on several threads passes one lock to them
+    all (the plain versions are Python loops of small torch ops, each of
+    which hands the GIL over, so threads running them at once only wait
+    on each other).
     """
 
     def __init__(self, blobs, plans, row, N: int, C: int, bps: int, verify_crc: bool,
-                 scan: str, chunk: int = DEFAULT_CHUNK_FRAMES):
+                 scan: str, chunk: int = DEFAULT_CHUNK_FRAMES, plain_lock=None):
         self.blobs, self.plans, self.N = blobs, plans, N
+        self.plain_lock = plain_lock or contextlib.nullcontext()
         F = np.array([p["F"] for p in plans], np.int64)
         n_slots = F + np.array([p["tail"] > 0 for p in plans], np.int64)
         self.slot0 = np.cumsum(n_slots) - n_slots
@@ -301,8 +307,7 @@ class FrameBatch:
         for (_, _, B, Bp), d in zip(chunks, direct):
             tab[4 + C, r0 : r0 + B] = tab[1, r0 : r0 + B] if d else np.arange(B)
             r0 += Bp
-        W = window_words(int(max(p["sizes"][p["f0"] : p["f0"] + p["F"]].max()
-                                 for p in plans if p["F"])))
+        W = self.window(plans)
         tab_host = torch.from_numpy(tab)
         slots = self.out.view(-1, N, C)
         uploads: dict = {}
@@ -325,14 +330,36 @@ class FrameBatch:
                 err = self._chunk(body, word0, rows32, dst, slots, B, Bp, W, C, bps, scan)
             self.errs.setdefault(dev, []).append((f0, f0 + B, err))
 
+    @staticmethod
+    def window(plans) -> int:
+        """The window words of a batch's chunks: its largest full frame's
+        (:func:`window_words`)."""
+        return window_words(int(max(p["sizes"][p["f0"] : p["f0"] + p["F"]].max()
+                                    for p in plans if p["F"])))
+
+    @staticmethod
+    def capture(plans, row, N: int, C: int, bps: int, scan: str,
+                chunk: int = DEFAULT_CHUNK_FRAMES) -> None:
+        """Capture, on the calling thread, the decode graph of every chunk
+        shape that a batch of ``plans`` on ``row`` replays (cached ones are
+        not captured again), so that batches built on other threads
+        capture nothing."""
+        n_frames = sum(p["F"] for p in plans)
+        if not n_frames:
+            return
+        W = FrameBatch.window(plans)
+        for s, _, _, Bp in chunk_schedule(n_frames, len(row), chunk):
+            dev = _indexed(torch.device(row[s]))
+            if dev.type == "cuda":
+                with device_scope(dev), record_function("frtt.decode.capture"):
+                    decode_graph(dev, Bp, W, C, bps, N, scan)
+
     def writes_slots(self, dev: torch.device) -> bool:
         """Whether a chunk on ``dev`` has the finish write its samples
         straight into the output's slots: where the output lies on ``dev``
         (a card named without its index is the current one, as its
         tensors are)."""
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        return dev == self.out.device
+        return _indexed(dev) == self.out.device
 
     def _chunk(self, body, word0, rows32, dst, slots, B: int, Bp: int, W: int, C: int,
                bps: int, scan: str) -> torch.Tensor:
@@ -365,11 +392,13 @@ class FrameBatch:
         (``decode_chunk``'s table, then each frame's slot of ``out``, a
         (slots, N, C) int32 tensor on the chunk's device): one replay of
         its graph on a card (the rows copied in, the graph pointed at
-        ``out``), the kernels' plain versions on the CPU.  Returns the err
-        flags."""
+        ``out``), the kernels' plain versions on the CPU (under
+        ``plain_lock``).  Returns the err flags."""
         if graph is None:
-            return decode_chunk(windows, rows32[: 2 + C].contiguous(), C=C, bps=bps, N=self.N,
-                                scan=scan, out=out, dst=rows32[2 + C].contiguous())[1]
+            with self.plain_lock:
+                return decode_chunk(windows, rows32[: 2 + C].contiguous(), C=C, bps=bps,
+                                    N=self.N, scan=scan, out=out,
+                                    dst=rows32[2 + C].contiguous())[1]
         graph.tab.copy_(rows32)
         graph.point_at(out)
         graph.replay()

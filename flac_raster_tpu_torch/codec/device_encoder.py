@@ -24,7 +24,10 @@ come back to the host.
 ``encode_flac_batch_device`` runs the same chunk loop over the full frames
 of a batch of same-shaped streams (the tiles of ``converter.
 encode_array_batch``), each stream's frames numbered from 0, and cuts each
-stream's bytes out of the chunks at its frames' cumulative size.
+stream's bytes out of the chunks at its frames' cumulative size.  Over a
+device grid (``parallel.tile_engine.encode_flac_batch_mesh``) each grid
+cell runs that loop on a ``frtt-cell`` thread of its own, all cells at
+once (``encode_batch_shards``).
 
 On a card each chunk is one replay of a CUDA graph of its shape
 (``codec/chunk_graph``), and the loop keeps one chunk in flight, as the
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -117,6 +121,14 @@ def as_int64(t: torch.Tensor) -> torch.Tensor:
     if signed is None:
         return t.long()
     return t.view(signed).long() & ((1 << (8 * t.element_size())) - 1)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """A card named without its index as the current one (its tensors'
+    device)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -201,14 +213,46 @@ def _frame_layout(blocksize: int, bits_per_sample: int, sample_rate: int, channe
     )
 
 
+def _bounds(n_frames: int, chunk: int) -> list:
+    """The (first, end) frames of each chunk of a loop over ``n_frames``."""
+    return [(g0, min(g0 + chunk, n_frames)) for g0 in range(0, n_frames, chunk)]
+
+
+def _padded(F: int, chunk: int) -> int:
+    """The frames of the graph that runs a chunk of F: the next power of
+    two, at most the full chunk (the JAX loop's ``f_pad``)."""
+    return min(1 << (F - 1).bit_length(), chunk)
+
+
+def _n_words(F: int, channels: int, layout: dict) -> int:
+    """The worst-case word count of F frames' stream."""
+    return worst_case_words(F, channels, layout["blocksize"], layout["bps"] + layout["mid_side"])
+
+
+def _graphs(dev: torch.device, n_frames: int, chunk: int, channels: int, layout: dict,
+            zero_point: int, dtype: torch.dtype) -> dict:
+    """The graph of every chunk shape a loop over ``n_frames`` on the card
+    ``dev`` (with its index) replays, by padded frames: captured on first
+    use, on the calling thread, the largest first."""
+    graphs = {}
+    with device_scope(dev):
+        for F in sorted({_padded(g1 - g0, chunk) for g0, g1 in _bounds(n_frames, chunk)},
+                        reverse=True):
+            with record_function("frtt.capture"):
+                graphs[F] = chunk_graph.chunk_graph(dev, F, channels, layout["blocksize"], dtype,
+                                                    _n_words(F, channels, layout), zero_point,
+                                                    layout)
+    return graphs
+
+
 class _HostChunks:
     """The chunk loop's device side on the CPU: each chunk planned and
     emitted eagerly (the plain PyTorch versions of the kernels)."""
 
-    def __init__(self, frames_of, bounds, numbers: torch.Tensor, n_words_of, zero_point: int,
+    def __init__(self, frames_of, bounds, numbers: torch.Tensor, channels: int, zero_point: int,
                  layout: dict):
         self.frames_of, self.bounds, self.numbers = frames_of, bounds, numbers
-        self.n_words_of, self.zero_point, self.layout = n_words_of, zero_point, layout
+        self.channels, self.zero_point, self.layout = channels, zero_point, layout
 
     def stage(self, i: int) -> None:
         pass
@@ -216,11 +260,13 @@ class _HostChunks:
     def dispatch(self, i: int):
         g0, g1 = self.bounds[i]
         rows = self.frames_of(g0, g1)
+        if isinstance(rows, list):
+            rows = np.concatenate(rows)
         if not isinstance(rows, torch.Tensor):
             rows = torch.from_numpy(rows)
         words, head = chunk_graph.emit_chunk(rows.permute(0, 2, 1), self.numbers[g0:g1],
-                                             self.n_words_of(g1 - g0), self.zero_point,
-                                             self.layout)
+                                             _n_words(g1 - g0, self.channels, self.layout),
+                                             self.zero_point, self.layout)
         return None, words, head, g1 - g0
 
 
@@ -240,16 +286,11 @@ class _CardChunks:
     chunk on the host link.
     """
 
-    def __init__(self, frames_of, bounds, numbers: torch.Tensor, n_words_of, zero_point: int,
-                 layout: dict, dtype: torch.dtype, channels: int, dev: torch.device, chunk: int):
+    def __init__(self, frames_of, bounds, numbers: torch.Tensor, channels: int, zero_point: int,
+                 layout: dict, dtype: torch.dtype, dev: torch.device, chunk: int):
         self.frames_of, self.bounds, self.numbers = frames_of, bounds, numbers
         self.chunk = chunk
-        N = layout["blocksize"]
-        self.graphs = {}
-        for F in sorted({self.padded(g1 - g0) for g0, g1 in bounds}, reverse=True):
-            with record_function("frtt.capture"):
-                self.graphs[F] = chunk_graph.chunk_graph(dev, F, channels, N, dtype,
-                                                         n_words_of(F), zero_point, layout)
+        self.graphs = _graphs(dev, bounds[-1][1], chunk, channels, layout, zero_point, dtype)
         big = self.graphs[max(self.graphs)]
         self.stream = torch.cuda.current_stream(dev)
         self.copy_stream = torch.cuda.Stream(dev)
@@ -262,14 +303,10 @@ class _CardChunks:
                             torch.empty(big.head.numel(), dtype=torch.int64, pin_memory=True))
                            for _ in range(DRAIN_SLOTS)]
 
-    def padded(self, F: int) -> int:
-        """The frames of the graph that runs a chunk of F: the next power
-        of two, at most the full chunk (the JAX loop's ``f_pad``)."""
-        return min(1 << (F - 1).bit_length(), self.chunk)
-
     def stage(self, i: int) -> None:
         """Upload chunk i's host rows on the copy stream (a device tensor
-        is copied at its dispatch instead)."""
+        is copied at its dispatch instead); rows given as a list of pieces
+        are gathered into the pinned buffer one after another."""
         rows = self.frames_of(*self.bounds[i])
         slot = i % 2
         if isinstance(rows, torch.Tensor):
@@ -277,15 +314,18 @@ class _CardChunks:
             return
         if self.staged[slot] is not None:
             self.staged[slot].synchronize()      # chunk i - 2's upload left this buffer
-        n = rows.size
+        pieces = rows if isinstance(rows, list) else [rows]
+        n = sum(p.size for p in pieces)
         if self.pinned_in[slot] is None:
             if self.dev_in is None:
                 self.dev_in = torch.empty_like(self.graphs[max(self.graphs)].x)
             self.pinned_in[slot] = torch.empty(self.dev_in.numel(), dtype=self.dev_in.dtype,
                                                pin_memory=True)
         host = self.pinned_in[slot][:n]
-        dst = host.numpy().reshape(rows.shape)
-        np.copyto(dst, rows.view(dst.dtype))     # unsigned rows as their signed bits
+        dst, at = host.numpy(), 0
+        for p in pieces:                         # unsigned rows as their signed bits
+            np.copyto(dst[at : at + p.size].reshape(p.shape), p.view(dst.dtype))
+            at += p.size
         with torch.cuda.stream(self.copy_stream):
             if self.consumed is not None:
                 self.copy_stream.wait_event(self.consumed)
@@ -299,7 +339,7 @@ class _CardChunks:
         copy of its outputs to the host; returns (the copy's event, the
         pinned words, the pinned head, the graph's frames)."""
         g0, g1 = self.bounds[i]
-        F, padded = g1 - g0, self.padded(g1 - g0)
+        F, padded = g1 - g0, _padded(g1 - g0, self.chunk)
         graph = self.graphs[padded]
         staged = self.staged[i % 2]
         with graph.use():
@@ -351,15 +391,34 @@ def _drain(span: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail_b
     return buf.tobytes(), frame_bits >> 3, subs[:, :-1].copy()
 
 
+@contextlib.contextmanager
+def _timed(name: str, stages: "dict | None"):
+    """A ``frtt.<name>`` range of a torch.profiler trace; its host seconds
+    are also added to ``stages[name + "_s"]`` where ``stages`` is a dict."""
+    t0 = time.perf_counter()
+    try:
+        with record_function(f"frtt.{name}"):
+            yield
+    finally:
+        if stages is not None:
+            stages[f"{name}_s"] = stages.get(f"{name}_s", 0.0) + time.perf_counter() - t0
+
+
 def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layout: dict,
-                      zero_point: int, chunk: int, dev: torch.device, dtype: torch.dtype):
+                      zero_point: int, chunk: int, dev: torch.device, dtype: torch.dtype,
+                      stages: "dict | None" = None):
     """Plan and emit full frames on ``dev``, ``chunk`` frames at a time.
 
     ``frames_of(g0, g1)`` gives frames [g0, g1) as (g1 - g0, N, C) integer
-    rows of ``dtype``: a numpy array, or a tensor already on ``dev``;
+    rows of ``dtype``: a numpy array, a list of (k, N, C) arrays whose
+    concatenation they are, or a tensor already on ``dev``;
     ``frame_numbers`` (one per frame) go into the headers.  Returns (the
     frames' bytes, CRCs patched; each frame's size in bytes; its first
-    C - 1 subframes' sizes in bits).
+    C - 1 subframes' sizes in bits).  Where ``stages`` is a dict, the host
+    seconds of each stage of the loop on the calling thread are added to
+    it: ``setup_s`` (the graphs' lookup, a capture where one is missing,
+    and the pinned output slots), ``upload_s``, ``plan_and_emit_s`` (the
+    enqueue) and ``drain_wait_s``.
 
     One chunk is in flight, as in the JAX encoder's loop: chunk i is
     dispatched before chunk i - 1 is drained, and the drain (the wait for
@@ -369,17 +428,10 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
     frames; an error on a worker raises here as itself, and the workers
     are joined before it does.
     """
-    blocksize, bps = layout["blocksize"], layout["bps"]
     frame_numbers = np.asarray(frame_numbers, np.int64)
     numbers = torch.from_numpy(frame_numbers).to(dev)
-    bounds = [(g0, min(g0 + chunk, len(frame_numbers)))
-              for g0 in range(0, len(frame_numbers), chunk)]
-
-    def n_words_of(F):
-        return worst_case_words(F, channels, blocksize, bps + layout["mid_side"])
-
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    bounds = _bounds(len(frame_numbers), chunk)
+    dev = _indexed(dev)
     tail_bits = layout["bs_tail_bits"]
     drains = []
     # record_function ranges name the stages in a torch.profiler trace
@@ -389,20 +441,23 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
           ThreadPoolExecutor(DRAIN_THREADS, thread_name_prefix="frtt-drain") as pool):
         try:
             if dev.type == "cuda":
-                chunks = _CardChunks(frames_of, bounds, numbers, n_words_of, zero_point, layout,
-                                     dtype, channels, dev, chunk)
+                t0 = time.perf_counter()     # the frtt.capture ranges are inside
+                chunks = _CardChunks(frames_of, bounds, numbers, channels, zero_point, layout,
+                                     dtype, dev, chunk)
+                if stages is not None:
+                    stages["setup_s"] = time.perf_counter() - t0
             else:
-                chunks = _HostChunks(frames_of, bounds, numbers, n_words_of, zero_point, layout)
-            with record_function("frtt.upload"):
+                chunks = _HostChunks(frames_of, bounds, numbers, channels, zero_point, layout)
+            with _timed("upload", stages):
                 chunks.stage(0)
             for i in range(len(bounds)):
                 if i >= DRAIN_SLOTS:
-                    with record_function("frtt.drain_wait"):
+                    with _timed("drain_wait", stages):
                         drains[i - DRAIN_SLOTS].result()   # its host slot is free again
-                with record_function("frtt.plan_and_emit"):
+                with _timed("plan_and_emit", stages):
                     out = chunks.dispatch(i)
                 if i + 1 < len(bounds):
-                    with record_function("frtt.upload"):
+                    with _timed("upload", stages):
                         chunks.stage(i + 1)
                 if i:
                     drains.append(pool.submit(_drain, bounds[i - 1], prev, channels,
@@ -410,7 +465,7 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
                 prev = out
             drains.append(pool.submit(_drain, bounds[-1], prev, channels, frame_numbers,
                                       tail_bits))
-            with record_function("frtt.drain_wait"):
+            with _timed("drain_wait", stages):
                 parts = [d.result() for d in drains]
         except BaseException:
             for d in drains:
@@ -593,10 +648,28 @@ def encode_flac_batch_device(
                                zero_point, [(dev, slice(0, T), slice(0, n_full))])
 
 
+def _tile_major(cell: np.ndarray, pieces: bool):
+    """``frames_of`` of a cell's (tiles, frames, N, C) rows, tile-major: a
+    view of them where each tile's frames follow the last's in memory;
+    else, with ``pieces``, a list of each tile's piece of the chunk, which
+    the staging gathers (a cell of a grid, on its own thread: no copy of
+    its rows is made), or without, a copy of them (the one-shard batch)."""
+    nf = cell.shape[1]
+    if cell.strides[0] == nf * cell.strides[1] or not pieces:
+        rows = cell.reshape(-1, *cell.shape[2:])
+        return lambda g0, g1: rows[g0:g1]
+
+    def frames_of(g0, g1):
+        return [cell[k, max(g0 - k * nf, 0) : min(g1 - k * nf, nf)]
+                for k in range(g0 // nf, -(-g1 // nf))]
+
+    return frames_of
+
+
 def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sample: int,
                         compression_level: int, blocksize: int, comments_list, vendor: str,
                         compute_md5: bool, plan_chunk_frames: int, zero_point: int,
-                        shards) -> list[bytes]:
+                        shards, cell_stages: "list | None" = None) -> list[bytes]:
     """The batch encode's body: T same-shaped streams with at least one
     full frame, their full frames in ``shards`` -- (device, tiles slice,
     frames slice) triples that cover the (T, full frames) grid, each run
@@ -605,7 +678,38 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
     bytes are its shards' slices concatenated in frame order; then its
     tail frame, MD5 and header.  ``encode_flac_batch_device`` is one shard
     on one device, ``parallel.tile_engine.encode_flac_batch_mesh`` one a
-    grid cell.  Returns the T FLAC streams."""
+    grid cell.  Returns the T FLAC streams.
+
+    The cells run at once, as the shards of the JAX package's SPMD step:
+    each on a ``frtt-cell`` thread of its own under ``device_scope`` of
+    its device (one shard runs on the calling thread).  Every chunk shape
+    a card's cells replay is captured on the calling thread before they
+    start, so that no capture runs while a cell launches work on that
+    card; cells of one shape on one card share its graph and take turns
+    at it.  Their pieces are joined in shard order, so the streams do not
+    depend on which cell ends first.  When cells raise, every cell is
+    joined first, then the first failing cell's exception (by shard order)
+    is raised as itself; no ``frtt-cell`` or ``frtt-drain`` thread
+    outlives the call.
+
+    Host memory a cell holds while it runs, on a card: two pinned input
+    buffers of one chunk's rows (``plan_chunk_frames`` x blocksize x
+    channels samples of the input's dtype: 16 MiB each for 2048 frames of
+    4096 uint16 samples), ``DRAIN_SLOTS`` pinned output slots of the
+    chunk's worst-case words and head (about 18 MB each for that chunk at
+    16 bps); a cell whose rows are no view of the batch (part of each
+    tile's frames, or tiles with a tail) hands the staging each tile's
+    piece of a chunk, no copy of its rows, where one shard alone copies
+    its rows once, as the one-device batch always has.  On the device,
+    one chunk's landing buffer besides the shared graphs.
+
+    Where ``cell_stages`` is a list, one dict a shard is appended to it,
+    in shard order: the shard's ``device``, ``tiles`` and ``frames``
+    ranges, its host seconds ``cell_s`` and the chunk loop's stage times
+    (``_emit_full_frames``: ``setup_s``, ``upload_s``,
+    ``plan_and_emit_s``, ``drain_wait_s``), which a torch.profiler trace
+    of the calling thread does not see.
+    """
     T, n, channels = samples_batch.shape
     _check_stream(channels, bits_per_sample, samples_batch.dtype)
     _check_range(samples_batch, samples_batch.dtype, bits_per_sample, zero_point)
@@ -613,20 +717,40 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
     n_full = n // blocksize
     full = samples_batch[:, : n_full * blocksize].reshape(T, n_full, blocksize, channels)
     layout = _frame_layout(blocksize, bits_per_sample, sample_rate, channels, cfg)
-    pieces: list[list] = [[] for _ in range(T)]
-    for dev, tiles, frames in shards:
-        # (tiles * frames, N, C): a view when the shard holds whole tiles
-        rows = full[tiles, frames].reshape(-1, blocksize, channels)
+    chunk = max(1, int(plan_chunk_frames))
+    dtype = _torch_dtype(samples_batch.dtype)
 
-        def frames_of(g0, g1, rows=rows):
-            return rows[g0:g1]
-
-        nf = frames.stop - frames.start
+    def cell(dev, tiles, frames):
+        t0 = time.perf_counter()
         numbers = np.tile(np.arange(frames.start, frames.stop), tiles.stop - tiles.start)
+        stages = {"device": str(dev), "tiles": (tiles.start, tiles.stop),
+                  "frames": (frames.start, frames.stop)}
         with device_scope(dev):
-            body, sizes, subs = _emit_full_frames(frames_of, numbers, channels, layout,
-                                                  zero_point, max(1, int(plan_chunk_frames)), dev,
-                                                  _torch_dtype(samples_batch.dtype))
+            body, sizes, subs = _emit_full_frames(
+                _tile_major(full[tiles, frames], len(shards) > 1), numbers, channels, layout,
+                zero_point, chunk, dev, dtype, stages)
+        stages["cell_s"] = time.perf_counter() - t0
+        return body, sizes, subs, stages
+
+    if len(shards) == 1:
+        done = [cell(*shards[0])]
+    else:
+        # a card named without its index is the caller's current one
+        shards = [(_indexed(torch.device(dev)), tiles, frames) for dev, tiles, frames in shards]
+        for dev, tiles, frames in shards:
+            if dev.type == "cuda":
+                _graphs(dev, (tiles.stop - tiles.start) * (frames.stop - frames.start), chunk,
+                        channels, layout, zero_point, dtype)
+        with ThreadPoolExecutor(len(shards), thread_name_prefix="frtt-cell") as pool:
+            cells = [pool.submit(cell, *shard) for shard in shards]
+        # the pool's exit joined every cell: the first failure by shard order
+        # raises as itself
+        done = [c.result() for c in cells]
+    pieces: list[list] = [[] for _ in range(T)]
+    for (dev, tiles, frames), (body, sizes, subs, stages) in zip(shards, done):
+        if cell_stages is not None:
+            cell_stages.append(stages)
+        nf = frames.stop - frames.start
         ends = np.concatenate([[0], np.cumsum(sizes)])
         for k, t in enumerate(range(tiles.start, tiles.stop)):
             f0, f1 = k * nf, (k + 1) * nf

@@ -51,13 +51,14 @@ from .codec.device_decoder import decode_flac_device
 from .codec.chunk_graph import SIGNED_VIEWS
 from .codec.device_encoder import (
     as_int64,
-    encode_flac_batch_device,
     encode_flac_device,
     np_dtype,
     resolve_device,
     to_host,
 )
 from .io.geo import Affine
+from .parallel import mesh as device_mesh
+from .parallel.tile_engine import encode_flac_batch_mesh
 from .io.geotiff import open_geotiff, write_geotiff
 from .models.flac_format import parse_flac_metadata, parse_layout_block
 from .models.metadata import build_geospatial_comments, parse_geospatial_comments
@@ -264,8 +265,12 @@ class RasterFLACConverter:
         extra_comments_list=None,
     ) -> list[bytes]:
         """Encode T same-shaped (bands, h, w) tiles, a (T, bands, h, w)
-        array, with their frames planned and emitted together on the device
-        (``encode_flac_batch_device``).
+        array, with their frames planned and emitted together on the
+        converter's grid (``parallel.encode_flac_batch_mesh`` on
+        ``parallel.device_grid``): one device, which is
+        ``encode_flac_batch_device``, or, for an unindexed ``"cuda"`` on a
+        machine with more than one visible card, every card, under the JAX
+        batch encoder's rule for its mesh; the bytes are the same either way.
 
         Each tile keeps its own normalization and GEOSPATIAL_* comments
         (``transforms``, ``bounds_list`` and ``extra_comments_list`` hold
@@ -291,10 +296,10 @@ class RasterFLACConverter:
         # the chunk loop and the per-tile MD5 and header are frtt.* ranges
         # (codec/device_encoder.encode_batch_shards)
         with timer.stage("tiles_encode", tiles.nbytes):
-            blobs = encode_flac_batch_device(
+            blobs = encode_flac_batch_mesh(
                 batch, sample_rate, bps, compression_level=compression_level,
                 comments_list=comments_list, compute_md5=self.compute_md5, zero_point=zero,
-                device=self.device,
+                mesh=device_mesh.device_grid(self.device),
             )
         timer.report(logging.DEBUG)
         return blobs

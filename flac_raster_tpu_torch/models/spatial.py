@@ -32,11 +32,12 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..codec.device_encoder import resolve_device
+from ..codec.device_encoder import device_scope, resolve_device
 from ..io.geo import Affine, Window
 from ..io.geotiff import open_geotiff
 from ..io.remote import RemoteFile, _shared_executor, is_remote_url
-from ..parallel import decode_flac_batch_mesh, tile_mesh
+from ..parallel import decode_flac_batch_mesh
+from ..parallel import mesh as device_mesh
 from .flac_format import (
     BLOCK_VORBIS_COMMENT,
     build_flac_header,
@@ -412,7 +413,12 @@ class SpatialFLACStreamer:
         a list of (frame, (bands, h, w) tensor on the device).
 
         The tiles decode in one batch (``parallel.decode_flac_batch_mesh``
-        on the streamer's device); each tile's inverse follows.
+        on ``parallel.device_grid`` of the streamer's device: every visible
+        card for an unindexed ``"cuda"`` on a machine with more than one,
+        as the JAX package's bbox decode takes its mesh; else that one
+        device); each tile's inverse follows on the card its samples were
+        decoded on, and its raster stays there, as the JAX package's
+        shards do.
         Every frame's CRC-16 is checked, as ``decode_bbox`` checks it: a
         corrupt tile raises ValueError.
         ``self.last_routes`` then holds each tile's route in the same order
@@ -426,14 +432,15 @@ class SpatialFLACStreamer:
         # every frame's CRC-16 is checked (one native pass over the batch),
         # as decode_bbox checks it: a corrupt range read raises ValueError
         decoded = decode_flac_batch_mesh(blobs, verify_crc=True,
-                                         mesh=tile_mesh(devices=[self.device]))
+                                         mesh=device_mesh.device_grid(self.device))
         out = []
         for f, dec in zip(frames, decoded):
             meta = conv._load_meta(dec.comments, None)
             if meta is None:
                 raise ValueError("tile carries no geospatial metadata")
-            out.append((f, conv._denormalize_device_stream(dec, meta, f.window.width,
-                                                           f.window.height)))
+            with device_scope(dec.samples.device):
+                out.append((f, conv._denormalize_device_stream(dec, meta, f.window.width,
+                                                               f.window.height)))
         self.last_routes = [dec.route for dec in decoded]
         return out
 

@@ -2,7 +2,7 @@
 processes (the port of ``flac_raster_tpu.parallel``)."""
 
 from .decode_mesh import decode_flac_batch_mesh
-from .mesh import TileMesh, host_tile_slice, tile_mesh
+from .mesh import TileMesh, device_grid, host_tile_slice, tile_mesh
 from .multihost import (
     assemble_sharded_container,
     decode_container_tiles_multihost,
@@ -15,6 +15,7 @@ from .tile_engine import encode_flac_batch_mesh, frame_bytes_from_subframe_bits,
 __all__ = [
     "TileMesh",
     "tile_mesh",
+    "device_grid",
     "host_tile_slice",
     "make_tile_step",
     "encode_flac_batch_mesh",

@@ -6,10 +6,16 @@ compressed tile streams decodes in one pass of chunks instead of one
 
   * the host parses each tile's metadata and FRTP layout block
     (``codec/device_decoder.stream_plan``);
-  * each row of the grid takes a contiguous group of tiles of one
+  * each row of the grid takes a contiguous group of tiles of each
     (blocksize, channels, bps) class and decodes them as one
     ``codec/device_decoder.FrameBatch``, the loop that
-    ``decode_flac_device`` runs for one stream: their bodies go up once,
+    ``decode_flac_device`` runs for one stream.  The rows build their
+    batches at once, each on a ``frtt-row`` host thread of its own (the
+    pinned fill, the CRC-16 pass, the byteswap, the table, the uploads and
+    the chunks' enqueue; the native C calls and torch ops release the GIL),
+    as every device of the JAX mesh runs its shard at once; the decode
+    graphs they replay are captured on the calling thread first.  A
+    batch's bodies go up once,
     their frames spread over the row's ``blocks`` devices in chunks of
     ``DEFAULT_CHUNK_FRAMES`` (window gather K10, Rice scan K8 or K9 by
     ``scan``, predictor restore) into one output buffer in which every tile
@@ -19,9 +25,10 @@ compressed tile streams decodes in one pass of chunks instead of one
     enqueued, once a group and device (once on one card).
 
 Two departures from the JAX engine, neither changing any tile's samples:
-  (a) the batch runs on one device too (JAX decodes tile by tile below two
-      devices): one device is what the card has, and the batch is what
-      makes its bbox decode fast;
+  (a) the batch runs on a grid of one device too (JAX decodes tile by
+      tile below two devices): the batch is what makes a one-card bbox
+      decode fast.  Over several visible cards the tiled entry points take
+      a grid of every card, as the JAX package's (``mesh.device_grid``);
   (b) only the tiles the device pipeline cannot take (no v2 layout index,
       a layout that does not match the stream, an err flag on the card) go
       through ``decode_flac_device``, which names their route; the rest
@@ -33,11 +40,14 @@ Two departures from the JAX engine, neither changing any tile's samples:
 from __future__ import annotations
 
 import logging
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 from torch.profiler import record_function
 
 from ..codec.decoder import DecodedStream, _comments_of
 from ..codec.device_decoder import FrameBatch, decode_flac_device, stream_plan
+from ..codec.device_encoder import _indexed, device_scope
 from ..models.flac_format import parse_flac_metadata, parse_layout_block
 from ..ops.device_decode import SCAN_ENGINES
 from .mesh import host_tile_slice, tile_mesh
@@ -69,6 +79,12 @@ def decode_flac_batch_mesh(blobs, verify_crc: bool = True, mesh=None, scan: str 
         group's output buffer) and whose ``route`` is ``"device"``, or that
         of ``decode_flac_device`` for a tile the batch cannot take (module
         docstring, departure (b)); the samples equal the host decoder's.
+
+    Raises:
+        ValueError: a frame's CRC-16 does not match (with ``verify_crc``),
+            naming the byte in its own stream, before any samples are
+            returned.  Every row is joined first; where several rows fail,
+            the lowest row's error is raised, as itself.
     """
     if scan not in SCAN_ENGINES:
         raise ValueError(f"unknown scan engine {scan!r}; one of {sorted(SCAN_ENGINES)}")
@@ -88,16 +104,36 @@ def decode_flac_batch_mesh(blobs, verify_crc: bool = True, mesh=None, scan: str 
                 continue
             plans[t], comments[t] = plan, _comments_of(blocks)
             classes.setdefault((si.max_blocksize, si.channels, si.bits_per_sample), []).append(t)
-    groups = []
     tiles_axis = mesh.shape["tiles"]
-    for (N, C, bps), members in classes.items():
-        for g in range(tiles_axis):
-            tiles = members[host_tile_slice(len(members), g, tiles_axis)]
-            if tiles:
-                groups.append((tiles, FrameBatch([blobs[t] for t in tiles],
-                                                 [plans[t] for t in tiles],
-                                                 list(mesh.devices[g]), N, C, bps, verify_crc,
-                                                 scan)))
+    # each grid row's groups, a group the row's tiles of one class; a card
+    # named without its index is the caller's current one
+    rows = []
+    for g in range(tiles_axis):
+        jobs = [(tiles, N, C, bps) for (N, C, bps), members in classes.items()
+                if (tiles := members[host_tile_slice(len(members), g, tiles_axis)])]
+        if jobs:
+            rows.append(([_indexed(d) for d in mesh.devices[g]], jobs))
+
+    # rows on the CPU take turns at their plain chunk decodes
+    plain_lock = threading.Lock() if len(rows) > 1 else None
+
+    def build(row, jobs):
+        with device_scope(row[0]):
+            return [(tiles, FrameBatch([blobs[t] for t in tiles], [plans[t] for t in tiles], row,
+                                       N, C, bps, verify_crc, scan, plain_lock=plain_lock))
+                    for tiles, N, C, bps in jobs]
+
+    if len(rows) < 2:
+        built = [build(*r) for r in rows]
+    else:
+        for row, jobs in rows:
+            for tiles, N, C, bps in jobs:
+                FrameBatch.capture([plans[t] for t in tiles], row, N, C, bps, scan)
+        with ThreadPoolExecutor(len(rows), thread_name_prefix="frtt-row") as pool:
+            futures = [pool.submit(build, *r) for r in rows]
+        # the pool's exit joined every row: the lowest failing row raises
+        built = [f.result() for f in futures]
+    groups = [group for row in built for group in row]
     # the host's share while the card decodes: the tails, then the flags
     for _, batch in groups:
         batch.put_tails(verify_crc)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["TileMesh", "tile_mesh", "host_tile_slice"]
+__all__ = ["TileMesh", "tile_mesh", "device_grid", "host_tile_slice"]
 
 
 class TileMesh:
@@ -61,6 +61,20 @@ def tile_mesh(n_devices: int | None = None, blocks_axis: int = 1, devices=None) 
     grid = np.empty(n_devices, dtype=object)
     grid[:] = devs[:n_devices]
     return TileMesh(grid.reshape(n_devices // blocks_axis, blocks_axis))
+
+
+def device_grid(device) -> TileMesh:
+    """The grid the tiled entry points (``RasterFLACConverter.
+    encode_array_batch``, ``SpatialFLACStreamer.decode_bbox_device``) run
+    on for their ``device``: an unindexed ``"cuda"`` with more than one
+    visible card spreads over every card, one ``blocks`` (the JAX
+    package's tiled entry points take their mesh whenever more than one
+    device is visible); any other device, a card named by its index
+    included, is a grid of that one device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.device_count() > 1:
+        return tile_mesh()
+    return tile_mesh(devices=[dev])
 
 
 def host_tile_slice(n_tiles: int, process_id: int, num_processes: int) -> slice:

@@ -13,11 +13,16 @@ the tail frames and the MD5 exactly as the single-device batch does.  A
 JAX's collectives become host sums: the ``psum`` of frame bytes over
 ``blocks``, the ``all_gather`` of tile sizes over ``tiles`` and the
 exclusive prefix sum of the byte-range index are sums of the shards' size
-arrays once every shard has run.  The shards run in turn from one host
-thread.
+arrays once every shard has run.  The shards run at once, as every device
+of the JAX mesh runs its shard of the SPMD step: each grid cell's chunk
+loop on a ``frtt-cell`` host thread of its own, the graphs it replays
+captured before the cells start (``encode_batch_shards``).  A grid may
+name one card several times; its cells then share that card, and their
+host work (staging, drain, CRC patch) overlaps.
 
 ``make_tile_step`` (plan only: subframe bits, frame bytes, tile body bytes
-and offsets) remains for index planning.
+and offsets) remains for index planning: it enqueues every cell's plan
+before it copies any result back, and waits once.
 """
 
 from __future__ import annotations
@@ -74,6 +79,16 @@ def frame_bytes_from_subframe_bits(sf_bits, frame_idx, bs_tail_bits: int = 0):
     return (raw + torch.remainder(-raw, 8) + 16) // 8
 
 
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``: a pinned buffer the copy is enqueued into for
+    a card's tensor (valid once the device's stream has passed it)."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 def make_tile_step(mesh=None, *, blocksize: int = 4096, bps: int = 16,
                    compression_level: int = 5):
     """Build the grid's tile-plan step.
@@ -84,6 +99,8 @@ def make_tile_step(mesh=None, *, blocksize: int = 4096, bps: int = 16,
         tile_body_bytes (T,), offsets (T,) [exclusive prefix over tiles].
         Shard (g, s) plans its tiles' frames on its device with
         ``ops/device_codec.plan_blocks``; T and F need not divide the grid.
+        Every shard's plan and frame sizes are enqueued, and their copies
+        to pinned host memory, before the host waits, once, for them all.
     """
     if mesh is None:
         mesh = tile_mesh()
@@ -102,15 +119,26 @@ def make_tile_step(mesh=None, *, blocksize: int = 4096, bps: int = 16,
         T, F, C, N = tiles_pcm.shape
         sf_bits = torch.zeros((T, F, C), dtype=torch.int64)
         fbytes = torch.zeros((T, F), dtype=torch.int64)
+        pulled, last = [], {}
         for dev, tiles, frames in _shards(mesh, T, F):
-            local = tiles_pcm[tiles, frames].to(dev)
+            local = tiles_pcm[tiles, frames]
             tT, tF = local.shape[:2]
             with device_scope(dev):
+                if dev.type == "cuda":   # from pinned memory: the host does not wait
+                    local = local.contiguous().pin_memory().to(dev, non_blocking=True)
                 plan = plan_blocks(local.reshape(tT * tF * C, N), **plan_kw)
                 sub = plan["subframe_bits"].reshape(tT, tF, C)
                 fidx = torch.arange(frames.start, frames.stop, device=dev).expand(tT, tF)
-                sf_bits[tiles, frames] = sub.long().cpu()
-                fbytes[tiles, frames] = frame_bytes_from_subframe_bits(sub, fidx).cpu()
+                pulled.append((tiles, frames, _to_pinned(sub.long()),
+                               _to_pinned(frame_bytes_from_subframe_bits(sub, fidx))))
+                if dev.type == "cuda":
+                    last[sub.device] = torch.cuda.Event()
+                    last[sub.device].record()
+        for done in last.values():     # the one wait, after every shard is enqueued
+            done.synchronize()
+        for tiles, frames, sub, fb in pulled:
+            sf_bits[tiles, frames] = sub
+            fbytes[tiles, frames] = fb
         body = fbytes.sum(dim=1)
         return {
             "subframe_bits": sf_bits,
@@ -133,6 +161,7 @@ def encode_flac_batch_mesh(
     compute_md5: bool = True,
     mesh=None,
     zero_point: int = 0,
+    cell_stages=None,
 ) -> list[bytes]:
     """Grid-sharded batch encode producing complete FLAC streams.
 
@@ -142,6 +171,10 @@ def encode_flac_batch_mesh(
     1 x 1 grid runs as it is; at levels 0-2 the streams are byte for byte
     the JAX ``encode_flac_batch_mesh``'s.  ``zero_point`` is the lossless
     shift subtracted on the device, as in ``encode_flac_batch_device``.
+    The grid's cells run at once, one host thread each
+    (``device_encoder.encode_batch_shards``, which also says what a cell
+    holds in host memory and how an error surfaces); where
+    ``cell_stages`` is a list, each cell's stage times are appended to it.
 
     A batch with no stream (T == 0), no full frame, or a blocksize that is
     not a power of two of at least 64 encodes stream by stream through
@@ -167,4 +200,4 @@ def encode_flac_batch_mesh(
             device=mesh.devices[0, 0])
     return encode_batch_shards(samples_batch, sample_rate, bits_per_sample, compression_level,
                                blocksize, comments_list, vendor, compute_md5, PLAN_CHUNK_FRAMES,
-                               zero_point, _shards(mesh, T, n_full))
+                               zero_point, _shards(mesh, T, n_full), cell_stages)

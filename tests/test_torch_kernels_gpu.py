@@ -926,11 +926,12 @@ def test_batch_decode_on_card_matches_per_tile_decode(cuda):
             assert d.samples.device == want.device and torch.equal(d.samples, want)
 
 
+@pytest.mark.parametrize("grid", ["1x2", "2x1", "2x2"])
 @pytest.mark.parametrize("level", [1, 5])
-def test_grid_encode_on_card_1x2_equals_1x1(cuda, level):
-    """encode_flac_batch_mesh on a 1 x 2 grid of the card (each tile's
-    frames split in two shards) equals the 1 x 1 grid's bytes and
-    encode_flac_device of each tile."""
+def test_grid_encode_on_card_1x2_equals_1x1(cuda, level, grid):
+    """encode_flac_batch_mesh on 1 x 2, 2 x 1 and 2 x 2 grids of the card
+    (its cells at once on frtt-cell threads, sharing the card's graphs)
+    equals the 1 x 1 grid's bytes and encode_flac_device of each tile."""
     from flac_raster_tpu_torch import encode_flac_device
     from flac_raster_tpu_torch.parallel import encode_flac_batch_mesh, tile_mesh
 
@@ -939,12 +940,96 @@ def test_grid_encode_on_card_1x2_equals_1x1(cuda, level):
     x = 20000 + 9000 * np.sin(t / 370.0)[None, :, None] + rng.normal(0, 20, (6, t.size, 1))
     x = np.clip(x, 0, 65535).astype(np.uint16)
     kw = dict(zero_point=32768, compute_md5=True)
+    rows, cols = map(int, grid.split("x"))
     one = encode_flac_batch_mesh(x, 44100, 16, level, mesh=tile_mesh(devices=[cuda]), **kw)
-    two = encode_flac_batch_mesh(x, 44100, 16, level,
-                                 mesh=tile_mesh(devices=[cuda, cuda], blocks_axis=2), **kw)
-    assert one == two
+    stages = []
+    many = encode_flac_batch_mesh(x, 44100, 16, level, cell_stages=stages, mesh=tile_mesh(
+        devices=[cuda] * (rows * cols), blocks_axis=cols), **kw)
+    assert one == many and len(stages) == rows * cols
     for blob, tile in zip(one, x):
         assert blob == encode_flac_device(tile, 44100, 16, level, device=cuda, **kw)
+
+
+def test_batch_decode_on_card_2x1_equals_1x1(cuda):
+    """decode_flac_batch_mesh on a 2 x 1 grid of the card (its rows built
+    at once on frtt-row threads) equals the 1 x 1 grid's samples, tile for
+    tile, with both Rice engines."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.parallel import decode_flac_batch_mesh, tile_mesh
+
+    rng = np.random.default_rng(6)
+    blobs = []
+    for frames, tail in ((3, 100), (5, 0), (2, 7), (4, 4095), (1, 1)):
+        x = np.cumsum(rng.integers(-40, 41, (frames * 4096 + tail, 1)), axis=0).astype(np.int32)
+        blobs.append(encode_flac_device(x, 44100, 16, compression_level=5, device=cuda))
+    for scan in ("full", "group"):
+        one = decode_flac_batch_mesh(blobs, mesh=tile_mesh(devices=[cuda]), scan=scan)
+        two = decode_flac_batch_mesh(blobs, mesh=tile_mesh(devices=[cuda, cuda]), scan=scan)
+        for a, b in zip(one, two):
+            assert a.route == b.route == "device" and torch.equal(a.samples, b.samples)
+
+
+@pytest.mark.parametrize("grid", ["1x2", "2x1"])
+@pytest.mark.parametrize("level", [1, 5])
+def test_tile_step_on_card_grids_equals_one_card_and_cpu(cuda, level, grid):
+    """make_tile_step on 1 x 2 and 2 x 1 grids of the card (every cell's
+    plan enqueued and copied back into pinned memory before one wait), on
+    a batch whose 5 tiles and 7 frames do not divide the grid: all four
+    outputs are host tensors equal to the card's 1 x 1 grid's and, at
+    level 1 (no float stage), to the same grid of the CPU's."""
+    from flac_raster_tpu_torch.parallel import make_tile_step, tile_mesh
+
+    rng = np.random.default_rng(level)
+    x = np.cumsum(rng.integers(-40, 41, (5, 7 * 4096)), axis=1)
+    x = np.clip(x, -30000, 30000).astype(np.int32).reshape(5, 7, 1, 4096)
+    cols = int(grid[-1])
+    kw = dict(blocksize=4096, bps=16, compression_level=level)
+    card = make_tile_step(tile_mesh(devices=[cuda] * 2, blocks_axis=cols), **kw)(x)
+    one = make_tile_step(tile_mesh(devices=[cuda]), **kw)(x)
+    cpu = make_tile_step(tile_mesh(devices=["cpu"] * 2, blocks_axis=cols), **kw)(x)
+    assert card["subframe_bits"].shape == (5, 7, 1)
+    for key in ("subframe_bits", "frame_bytes", "tile_body_bytes", "offsets"):
+        assert card[key].device.type == "cpu" and torch.equal(card[key], one[key]), key
+        if level == 1:
+            assert torch.equal(card[key], cpu[key]), key
+
+
+def test_two_cells_of_a_fresh_shape_equal_eager_plan_and_emit(cuda, monkeypatch):
+    """After chunk_graph.clear(), a 1 x 2 grid of the card encodes a shape
+    no graph holds (its graphs captured on the calling thread before the
+    cells start): the bytes
+    equal a chunk loop of eager plan_and_emit calls on the card."""
+    import threading
+
+    from flac_raster_tpu_torch.codec import chunk_graph, device_encoder
+    from flac_raster_tpu_torch.parallel import encode_flac_batch_mesh, tile_mesh
+
+    x = np.stack([_two_band(s, 5, tail=11) for s in (7, 8, 9)])
+    kw = dict(compression_level=5, blocksize=4096, compute_md5=False)
+    chunk_graph.clear()
+    n = len(chunk_graph.CAPTURES)
+    grid = tile_mesh(devices=[cuda, cuda], blocks_axis=2)
+    got = encode_flac_batch_mesh(x, 44100, 16, mesh=grid, **kw)
+    assert len(chunk_graph.CAPTURES) > n
+    assert {c["thread"] for c in chunk_graph.CAPTURES[n:]} == {threading.current_thread().name}
+
+    class EagerOnCard(device_encoder._HostChunks):
+        def dispatch(self, i):
+            g0, g1 = self.bounds[i]
+            rows = self.frames_of(g0, g1)       # the cells' pieces of each tile
+            rows = np.concatenate(rows) if isinstance(rows, list) else rows
+            rows = torch.from_numpy(np.ascontiguousarray(rows)).to(cuda)
+            words, head = chunk_graph.emit_chunk(
+                rows.permute(0, 2, 1), self.numbers[g0:g1],
+                device_encoder._n_words(g1 - g0, self.channels, self.layout), self.zero_point,
+                self.layout)
+            return None, words.cpu(), head.cpu(), g1 - g0
+
+    monkeypatch.setattr(device_encoder, "_CardChunks",
+                        lambda frames_of, bounds, numbers, channels, zero_point, layout, *_:
+                        EagerOnCard(frames_of, bounds, numbers, channels, zero_point, layout))
+    assert encode_flac_batch_mesh(x, 44100, 16, mesh=grid, **kw) == got
+    chunk_graph.clear()
 
 
 def _graph_case(case):

@@ -119,18 +119,13 @@ def test_encode_array_batch_level5_equals_encode_array(raster_tif, group):
 
 def test_encode_array_batch_small_plan_chunks(raster_tif, monkeypatch):
     """Chunks that split a tile's frames across chunks give the same bytes."""
-    from flac_raster_tpu_torch.codec import device_encoder
-
     _, data = raster_tif
     _, tiles = _tiles_of(data, 128, 128)
     conv = RasterFLACConverter(device="cpu")
     want = conv.encode_array_batch(tiles, compression_level=1)
-    orig = device_encoder.encode_flac_batch_device
-
-    def small_chunks(*a, **kw):
-        return orig(*a, **dict(kw, plan_chunk_frames=3))
-
-    monkeypatch.setattr("flac_raster_tpu_torch.converter.encode_flac_batch_device", small_chunks)
+    # encode_array_batch encodes through the grid encode, which runs its
+    # cells' chunk loops in chunks of PLAN_CHUNK_FRAMES frames
+    monkeypatch.setattr("flac_raster_tpu_torch.parallel.tile_engine.PLAN_CHUNK_FRAMES", 3)
     assert conv.encode_array_batch(tiles, compression_level=1) == want
 
 
