@@ -1693,7 +1693,7 @@ def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
     ``ValueError`` with its byte; ``encode_flac_batch_mesh`` of the interior
     tiles on 1 x 1, 1 x 2, 2 x 1 and 2 x 2 grids of the card (the cells at
     once on ``frtt-cell`` threads; each grid's host s and each cell's stage
-    times printed), every grid's streams equal to each other and to
+    times, from the span log, printed), every grid's streams equal to each other and to
     ``encode_array_batch``'s frames, no worker thread left; two gloo
     processes on the card through
     ``encode_tiles_multihost``, ``assemble_sharded_container`` and
@@ -1801,20 +1801,22 @@ def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
     streams = {}
     for name, (rows, cols) in GRIDS.items():
         grid = tile_mesh(devices=[dev] * (rows * cols), blocks_axis=cols)
-        cells, captured = [], len(chunk_graph.CAPTURES)
-        streams[name], dt, launches = run_path(
-            f"the {name} grid encode", lambda: encode_flac_batch_mesh(
-                pcm, sample_rate, bps, LEVEL, compute_md5=False, mesh=grid, zero_point=zero,
-                cell_stages=cells), encode_kernels())
+        captured = len(chunk_graph.CAPTURES)
+
+        def encode():
+            return encode_flac_batch_mesh(pcm, sample_rate, bps, LEVEL, compute_md5=False,
+                                          mesh=grid, zero_point=zero)
+
+        streams[name], dt, launches = run_path(f"the {name} grid encode", encode,
+                                               encode_kernels())
         threads = [c["thread"] for c in chunk_graph.CAPTURES[captured:]]
         if any(t.startswith("frtt-") for t in threads):
             raise AssertionError(f"the {name} grid captured graphs on its workers: {threads}")
         log(f"encode_flac_batch_mesh, {len(pcm)} interior tiles, {name} grid of the card: "
             f"{dt:.3f} s, {interior.nbytes / dt / 1e6:.2f} MB/s raw, launches {launches}, "
             f"captures {len(threads)} (on the calling thread) | {card}")
-        for c in cells:
-            log(f"  cell tiles {c['tiles']} frames {c['frames']}: "
-                + ", ".join(f"{k} {v:.4f}" for k, v in c.items() if k.endswith("_s")))
+        for line in cell_spans(encode):
+            log("  " + line)
     batch = conv.encode_array_batch(interior[:, None], compression_level=LEVEL)
 
     def frames_of(blob):
@@ -1853,6 +1855,32 @@ def tile_engines_phase(band: np.ndarray, work, card: str, dev) -> None:
 # the kernels' __global__ names, as a CUDA trace shows them
 TRACE_KERNELS = {"rice_cost_sums": "rice_cost_kernel", "pack_tokens": "pack_tokens_kernel",
                  "pack_tokens_v5": "pack_v5_kernel"}
+
+
+def cell_spans(fn) -> list[str]:
+    """One line a grid cell of ``fn()`` run once more under a profiler:
+    its ``frtt.cell`` span's host seconds and, summed, those of the chunk
+    loop's spans under it (``utils.profiling``'s log, every thread)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flac_raster_tpu_torch.utils import profiling
+
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    spans = profiling.spans()
+    profiling.clear_spans()
+    lines = []
+    for cell in sorted((s for s in spans if s.name == "frtt.cell"),
+                       key=lambda s: (s.attrs["tiles"], s.attrs["frames"])):
+        stages: dict = {"cell": (cell.end_ns - cell.start_ns) / 1e9}
+        for s in spans:
+            if s.parent == cell.id:
+                key = s.name.removeprefix("frtt.")
+                stages[key] = stages.get(key, 0.0) + (s.end_ns - s.start_ns) / 1e9
+        lines.append(f"cell tiles {cell.attrs['tiles']} frames {cell.attrs['frames']} on "
+                     f"{cell.thread}: " + ", ".join(f"{k}_s {v:.4f}" for k, v in stages.items()))
+    return lines
 
 
 def read_trace(path: Path, wall: float) -> dict:

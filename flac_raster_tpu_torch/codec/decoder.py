@@ -38,6 +38,7 @@ from ..ops.bitpack import BitReader, bits_of, read_kbits_at
 from ..ops.crc import crc8
 from ..ops.fixed import fixed_restore
 from ..ops.lpc import lpc_restore_batch
+from ..utils.profiling import span
 
 __all__ = ["decode_flac", "decode_flac_range", "decode_frame_span", "covering_frames",
            "DecodedStream", "md5_of_samples"]
@@ -404,4 +405,5 @@ def md5_of_samples(samples: np.ndarray, bits_per_sample: int) -> bytes:
         raw = np.ascontiguousarray(b).tobytes()
     else:
         raw = s.astype("<i4").tobytes()
-    return hashlib.md5(raw).digest()
+    with span("frtt.md5.hash"):
+        return hashlib.md5(raw).digest()

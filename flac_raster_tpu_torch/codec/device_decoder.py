@@ -30,7 +30,6 @@ import logging
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import native
 from ..models.flac_format import (
@@ -42,6 +41,7 @@ from ..models.flac_format import (
 from ..ops.device_codec import MAX_DEVICE_BPS
 from ..ops.device_decode import SCAN_ENGINES, decode_chunk
 from ..ops.gather import gather_windows
+from ..utils.profiling import span
 from .decoder import (
     DecodedStream,
     _comments_of,
@@ -266,13 +266,13 @@ class FrameBatch:
         n_words = np.array([(hi - lo + 3) // 4 for lo, hi in spans], np.int64)
         base = np.cumsum(n_words) - n_words
         pin = out_dev.type == "cuda"
-        with record_function("frtt.decode.upload"):
+        with span("frtt.decode.upload"):
             host = torch.zeros(int(n_words.sum()), dtype=torch.int32, pin_memory=pin)
             raw = host.numpy().view(np.uint8)
             for (lo, hi), b, blob in zip(spans, base, blobs):
                 raw[4 * b : 4 * b + hi - lo] = np.frombuffer(blob, np.uint8, hi - lo, lo)
         if verify_crc:
-            with record_function("frtt.decode.crc"):
+            with span("frtt.decode.crc"):
                 n_crc = np.array([p["f1"] - p["f0"] for p in plans], np.int64)
                 offs = np.concatenate([p["offsets"][p["f0"] : p["f1"]] - p["lo"] + 4 * b
                                        for p, b in zip(plans, base)])
@@ -285,33 +285,34 @@ class FrameBatch:
         n_frames = int(F.sum())
         if n_frames == 0:
             return
-        raw.view(np.uint32).byteswap(inplace=True)      # big-endian words
-        chunks = chunk_schedule(n_frames, len(row), chunk)
-        direct = [self.writes_slots(row[s]) for s, _, _, _ in chunks]
-        # one int64 table column a chunk row (padded rows repeat the chunk's
-        # first frame): word0, destination slot, bit_base, fe, sf, and the
-        # finish's slot: the destination slot where the chunk writes the
-        # output itself, else the row in its own buffer; -1 on padded rows
-        cols = np.concatenate([np.r_[f0 : f0 + B, np.full(Bp - B, f0)]
-                               for _, f0, B, Bp in chunks])
-        cat = {k: np.concatenate([p["tables"][k] for p in plans])
-               for k in ("word0", "bit_base", "fe", "sf")}
-        tab = np.empty((5 + C, len(cols)), np.int64)
-        tab[0] = (cat["word0"] + np.repeat(base, F))[cols]
-        tab[1] = (np.arange(n_frames) + np.repeat(self.slot0 - (np.cumsum(F) - F), F))[cols]
-        tab[2] = cat["bit_base"][cols]
-        tab[3] = cat["fe"][cols]
-        tab[4 : 4 + C] = cat["sf"][cols].T
-        tab[4 + C] = -1
-        r0 = 0
-        for (_, _, B, Bp), d in zip(chunks, direct):
-            tab[4 + C, r0 : r0 + B] = tab[1, r0 : r0 + B] if d else np.arange(B)
-            r0 += Bp
-        W = self.window(plans)
-        tab_host = torch.from_numpy(tab)
+        with span("frtt.decode.tables"):
+            raw.view(np.uint32).byteswap(inplace=True)      # big-endian words
+            chunks = chunk_schedule(n_frames, len(row), chunk)
+            direct = [self.writes_slots(row[s]) for s, _, _, _ in chunks]
+            # one int64 table column a chunk row (padded rows repeat the chunk's
+            # first frame): word0, destination slot, bit_base, fe, sf, and the
+            # finish's slot: the destination slot where the chunk writes the
+            # output itself, else the row in its own buffer; -1 on padded rows
+            cols = np.concatenate([np.r_[f0 : f0 + B, np.full(Bp - B, f0)]
+                                   for _, f0, B, Bp in chunks])
+            cat = {k: np.concatenate([p["tables"][k] for p in plans])
+                   for k in ("word0", "bit_base", "fe", "sf")}
+            tab = np.empty((5 + C, len(cols)), np.int64)
+            tab[0] = (cat["word0"] + np.repeat(base, F))[cols]
+            tab[1] = (np.arange(n_frames) + np.repeat(self.slot0 - (np.cumsum(F) - F), F))[cols]
+            tab[2] = cat["bit_base"][cols]
+            tab[3] = cat["fe"][cols]
+            tab[4 : 4 + C] = cat["sf"][cols].T
+            tab[4 + C] = -1
+            r0 = 0
+            for (_, _, B, Bp), d in zip(chunks, direct):
+                tab[4 + C, r0 : r0 + B] = tab[1, r0 : r0 + B] if d else np.arange(B)
+                r0 += Bp
+            W = self.window(plans)
+            tab_host = torch.from_numpy(tab)
         slots = self.out.view(-1, N, C)
         uploads: dict = {}
-        with record_function("frtt.decode.upload"):
+        with span("frtt.decode.upload"):
             for dev in row:
                 if dev not in uploads:
                     if dev.type == "cuda":
@@ -351,7 +352,7 @@ class FrameBatch:
         for s, _, _, Bp in chunk_schedule(n_frames, len(row), chunk):
             dev = _indexed(torch.device(row[s]))
             if dev.type == "cuda":
-                with device_scope(dev), record_function("frtt.decode.capture"):
+                with device_scope(dev), span("frtt.decode.capture"):
                     decode_graph(dev, Bp, W, C, bps, N, scan)
 
     def writes_slots(self, dev: torch.device) -> bool:
@@ -370,13 +371,13 @@ class FrameBatch:
         (a copy)."""
         graph = None
         if body.device.type == "cuda":
-            with record_function("frtt.decode.capture"):
+            with span("frtt.decode.capture"):
                 graph = decode_graph(body.device, Bp, W, C, bps, self.N, scan)
         with graph.use() if graph is not None else contextlib.nullcontext():
-            with record_function("frtt.decode.gather"):
+            with span("frtt.decode.gather"):
                 windows = gather_windows(body, word0, W,
                                          out=None if graph is None else graph.windows)
-            with record_function("frtt.decode.frames"):
+            with span("frtt.decode.frames"):
                 if dst is None:
                     err = self._decode(graph, windows, rows32, slots, C, bps, scan)
                 else:
@@ -411,7 +412,7 @@ class FrameBatch:
         if not with_tail:
             return
         N, C = self.N, self.out.shape[1]
-        with record_function("frtt.decode.tail"):
+        with span("frtt.decode.tail"):
             pin = self.out.device.type == "cuda"
             tails = torch.zeros((len(with_tail), N, C), dtype=torch.int32, pin_memory=pin)
             rows = tails.numpy()
@@ -431,7 +432,7 @@ class FrameBatch:
         """The streams (batch indices) with a frame whose err flag is set:
         one pull of the flags of every device."""
         hit = set()
-        with record_function("frtt.decode.err_pull"):
+        with span("frtt.decode.err_pull"):
             for chunks in self.errs.values():
                 flags = torch.cat([err for _, _, err in chunks]).cpu().numpy()
                 frames = np.concatenate([np.arange(f0, f1) for f0, f1, _ in chunks])
@@ -465,7 +466,7 @@ def prepare_frames(buf: bytes, frame_start: int, layout, si: StreamInfo, f0: int
         t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
         return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
-    with record_function("frtt.decode.upload"):
+    with span("frtt.decode.upload"):
         body = _upload_words(arr[byte_lo : int(offsets[f1])], dev)
         return {"body": body, "W": window_words(int(sizes.max())),
                 **{k: up(v) for k, v in tables.items()}}
@@ -504,16 +505,16 @@ def decode_flac_device(
         raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
 
     buf = bytes(data)
-    si, blocks, frame_start = parse_flac_metadata(buf)
-    vendor, comments = _comments_of(blocks)
-    layout = parse_layout_block(blocks)
-    N, C, bps, total = si.max_blocksize, si.channels, si.bits_per_sample, si.total_samples
-    if sample_range is not None:
-        s0, cnt = sample_range
-        if s0 < 0 or cnt < 0 or s0 + cnt > total:
-            raise ValueError("sample range outside the stream")
-
-    plan = stream_plan(buf, si, layout, frame_start, sample_range)
+    with span("frtt.decode.parse"):
+        si, blocks, frame_start = parse_flac_metadata(buf)
+        vendor, comments = _comments_of(blocks)
+        layout = parse_layout_block(blocks)
+        N, C, bps, total = si.max_blocksize, si.channels, si.bits_per_sample, si.total_samples
+        if sample_range is not None:
+            s0, cnt = sample_range
+            if s0 < 0 or cnt < 0 or s0 + cnt > total:
+                raise ValueError("sample range outside the stream")
+        plan = stream_plan(buf, si, layout, frame_start, sample_range)
     if isinstance(plan, str):
         return _host_route(buf, verify_crc, plan, sample_range, dev)
     if plan["count"] == 0:
@@ -528,7 +529,7 @@ def decode_flac_device(
         return _host_route(buf, verify_crc, "in-graph structure flag", sample_range, dev)
     samples_dev = batch.samples(0)
     if verify_md5 and si.md5 != b"\x00" * 16:
-        with record_function("frtt.decode.md5"):
+        with span("frtt.decode.md5"):
             if md5_of_samples(samples_dev.cpu().numpy(), bps) != si.md5:
                 raise ValueError("decoded audio MD5 mismatch")
     return DecodedStream(samples_dev, si, comments, vendor, route="device")

@@ -44,17 +44,16 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import native
 from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_header
 from ..ops.device_emit import worst_case_words
 from ..ops.stereo import midside_ok
+from ..utils.profiling import carry, span
 from . import chunk_graph, host_encoder
 from .chunk_graph import SIGNED_VIEWS
 from .decoder import md5_of_samples
@@ -238,7 +237,7 @@ def _graphs(dev: torch.device, n_frames: int, chunk: int, channels: int, layout:
     with device_scope(dev):
         for F in sorted({_padded(g1 - g0, chunk) for g0, g1 in _bounds(n_frames, chunk)},
                         reverse=True):
-            with record_function("frtt.capture"):
+            with span("frtt.capture"):
                 graphs[F] = chunk_graph.chunk_graph(dev, F, channels, layout["blocksize"], dtype,
                                                     _n_words(F, channels, layout), zero_point,
                                                     layout)
@@ -365,13 +364,13 @@ class _CardChunks:
         return done, words, head, padded
 
 
-def _drain(span: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail_bits: int):
+def _drain(bounds: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail_bits: int):
     """The bytes, CRCs patched, frame sizes and first C - 1 subframe sizes
-    of the chunk of frames ``span`` = (g0, g1), from its dispatched
+    of the chunk of frames ``bounds`` = (g0, g1), from its dispatched
     outputs (on the drain's worker thread)."""
-    g0, g1 = span
+    g0, g1 = bounds
     done, words_t, head_t, padded = out
-    with record_function("frtt.readback"):       # waits for the chunk's compute
+    with span("frtt.readback"):       # waits for the chunk's compute
         if done is not None:
             done.synchronize()
         frame_bits, err, subs = chunk_graph.split_head(head_t.numpy(), padded, channels)
@@ -382,31 +381,18 @@ def _drain(span: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail_b
             "of the pack kernel; its words are not valid"
         )
     total_bits = int(frame_bits.sum())
-    with record_function("frtt.host_crc"):
+    with span("frtt.host_crc"):      # the byteswap, the CRC patch and the bytes' copy
         words = words_t[: (total_bits + 31) // 32].numpy()
         buf = words.view(np.uint32).astype(">u4").view(np.uint8)[: (total_bits + 7) // 8]
         fi = frame_numbers[g0:g1]
         n_bytes = np.sum(fi[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
         _patch_crcs(buf, frame_bits, 32 + n_bytes * 8 + bs_tail_bits)
-    return buf.tobytes(), frame_bits >> 3, subs[:, :-1].copy()
-
-
-@contextlib.contextmanager
-def _timed(name: str, stages: "dict | None"):
-    """A ``frtt.<name>`` range of a torch.profiler trace; its host seconds
-    are also added to ``stages[name + "_s"]`` where ``stages`` is a dict."""
-    t0 = time.perf_counter()
-    try:
-        with record_function(f"frtt.{name}"):
-            yield
-    finally:
-        if stages is not None:
-            stages[f"{name}_s"] = stages.get(f"{name}_s", 0.0) + time.perf_counter() - t0
+        body = buf.tobytes()
+    return body, frame_bits >> 3, subs[:, :-1].copy()
 
 
 def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layout: dict,
-                      zero_point: int, chunk: int, dev: torch.device, dtype: torch.dtype,
-                      stages: "dict | None" = None):
+                      zero_point: int, chunk: int, dev: torch.device, dtype: torch.dtype):
     """Plan and emit full frames on ``dev``, ``chunk`` frames at a time.
 
     ``frames_of(g0, g1)`` gives frames [g0, g1) as (g1 - g0, N, C) integer
@@ -414,11 +400,10 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
     concatenation they are, or a tensor already on ``dev``;
     ``frame_numbers`` (one per frame) go into the headers.  Returns (the
     frames' bytes, CRCs patched; each frame's size in bytes; its first
-    C - 1 subframes' sizes in bits).  Where ``stages`` is a dict, the host
-    seconds of each stage of the loop on the calling thread are added to
-    it: ``setup_s`` (the graphs' lookup, a capture where one is missing,
-    and the pinned output slots), ``upload_s``, ``plan_and_emit_s`` (the
-    enqueue) and ``drain_wait_s``.
+    C - 1 subframes' sizes in bits).  Its stages are spans (``frtt.upload``,
+    ``frtt.plan_and_emit``, the enqueue, and ``frtt.drain_wait`` on the
+    calling thread; ``frtt.readback`` and ``frtt.host_crc`` on the worker,
+    under the caller's request).
 
     One chunk is in flight, as in the JAX encoder's loop: chunk i is
     dispatched before chunk i - 1 is drained, and the drain (the wait for
@@ -434,38 +419,32 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
     dev = _indexed(dev)
     tail_bits = layout["bs_tail_bits"]
     drains = []
-    # record_function ranges name the stages in a torch.profiler trace
-    # (host time per stage; chip_smoke.py prints them; a trace records the
-    # thread that started it, so the drain's own ranges may be missing)
     with (device_scope(dev),
           ThreadPoolExecutor(DRAIN_THREADS, thread_name_prefix="frtt-drain") as pool):
         try:
             if dev.type == "cuda":
-                t0 = time.perf_counter()     # the frtt.capture ranges are inside
                 chunks = _CardChunks(frames_of, bounds, numbers, channels, zero_point, layout,
                                      dtype, dev, chunk)
-                if stages is not None:
-                    stages["setup_s"] = time.perf_counter() - t0
             else:
                 chunks = _HostChunks(frames_of, bounds, numbers, channels, zero_point, layout)
-            with _timed("upload", stages):
+            with span("frtt.upload"):
                 chunks.stage(0)
             for i in range(len(bounds)):
                 if i >= DRAIN_SLOTS:
-                    with _timed("drain_wait", stages):
+                    with span("frtt.drain_wait"):
                         drains[i - DRAIN_SLOTS].result()   # its host slot is free again
-                with _timed("plan_and_emit", stages):
+                with span("frtt.plan_and_emit"):
                     out = chunks.dispatch(i)
                 if i + 1 < len(bounds):
-                    with _timed("upload", stages):
+                    with span("frtt.upload"):
                         chunks.stage(i + 1)
                 if i:
-                    drains.append(pool.submit(_drain, bounds[i - 1], prev, channels,
+                    drains.append(pool.submit(carry(_drain), bounds[i - 1], prev, channels,
                                               frame_numbers, tail_bits))
                 prev = out
-            drains.append(pool.submit(_drain, bounds[-1], prev, channels, frame_numbers,
-                                      tail_bits))
-            with _timed("drain_wait", stages):
+            drains.append(pool.submit(carry(_drain), bounds[-1], prev, channels,
+                                      frame_numbers, tail_bits))
+            with span("frtt.drain_wait"):
                 parts = [d.result() for d in drains]
         except BaseException:
             for d in drains:
@@ -484,7 +463,7 @@ def _assemble_stream(frames: bytes, sizes: np.ndarray, subs: np.ndarray, tail, n
     one): the tail frame is encoded on the host; STREAMINFO and the FRTP v2
     layout block head the stream."""
     if tail is not None:
-        with record_function("frtt.host_tail"):    # the partial frame, on the host
+        with span("frtt.host_tail"):    # the partial frame, on the host
             tail_bytes = host_encoder.emit_tail_frame(
                 tail, len(sizes), bits_per_sample, _SAMPLE_RATE_CODES.get(sample_rate, 0),
                 _BPS_CODES[bits_per_sample], cfg)
@@ -592,7 +571,7 @@ def encode_flac_device(
         tail = (to_host(tail) if on_device else tail).astype(np.int64) - zero_point
     md5 = b"\x00" * 16
     if compute_md5:
-        with record_function("frtt.md5"):
+        with span("frtt.md5"):      # to the host, widen, narrow, hash (frtt.md5.hash)
             pcm = to_host(samples) if on_device else samples
             md5 = md5_of_samples(pcm.astype(np.int64) - zero_point, bits_per_sample)
     return _assemble_stream(frames, sizes, subs, tail, n, channels, sample_rate,
@@ -669,7 +648,7 @@ def _tile_major(cell: np.ndarray, pieces: bool):
 def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sample: int,
                         compression_level: int, blocksize: int, comments_list, vendor: str,
                         compute_md5: bool, plan_chunk_frames: int, zero_point: int,
-                        shards, cell_stages: "list | None" = None) -> list[bytes]:
+                        shards) -> list[bytes]:
     """The batch encode's body: T same-shaped streams with at least one
     full frame, their full frames in ``shards`` -- (device, tiles slice,
     frames slice) triples that cover the (T, full frames) grid, each run
@@ -703,12 +682,9 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
     its rows once, as the one-device batch always has.  On the device,
     one chunk's landing buffer besides the shared graphs.
 
-    Where ``cell_stages`` is a list, one dict a shard is appended to it,
-    in shard order: the shard's ``device``, ``tiles`` and ``frames``
-    ranges, its host seconds ``cell_s`` and the chunk loop's stage times
-    (``_emit_full_frames``: ``setup_s``, ``upload_s``,
-    ``plan_and_emit_s``, ``drain_wait_s``), which a torch.profiler trace
-    of the calling thread does not see.
+    Each cell is a ``frtt.cell`` span on its thread, with its ``device``
+    and its ``tiles`` and ``frames`` ranges as attributes; the chunk loop's
+    spans lie under it (``utils.profiling``).
     """
     T, n, channels = samples_batch.shape
     _check_stream(channels, bits_per_sample, samples_batch.dtype)
@@ -721,16 +697,12 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
     dtype = _torch_dtype(samples_batch.dtype)
 
     def cell(dev, tiles, frames):
-        t0 = time.perf_counter()
         numbers = np.tile(np.arange(frames.start, frames.stop), tiles.stop - tiles.start)
-        stages = {"device": str(dev), "tiles": (tiles.start, tiles.stop),
-                  "frames": (frames.start, frames.stop)}
-        with device_scope(dev):
-            body, sizes, subs = _emit_full_frames(
+        with (span("frtt.cell", device=str(dev), tiles=(tiles.start, tiles.stop),
+                   frames=(frames.start, frames.stop)), device_scope(dev)):
+            return _emit_full_frames(
                 _tile_major(full[tiles, frames], len(shards) > 1), numbers, channels, layout,
-                zero_point, chunk, dev, dtype, stages)
-        stages["cell_s"] = time.perf_counter() - t0
-        return body, sizes, subs, stages
+                zero_point, chunk, dev, dtype)
 
     if len(shards) == 1:
         done = [cell(*shards[0])]
@@ -742,14 +714,12 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
                 _graphs(dev, (tiles.stop - tiles.start) * (frames.stop - frames.start), chunk,
                         channels, layout, zero_point, dtype)
         with ThreadPoolExecutor(len(shards), thread_name_prefix="frtt-cell") as pool:
-            cells = [pool.submit(cell, *shard) for shard in shards]
+            cells = [pool.submit(carry(cell), *shard) for shard in shards]
         # the pool's exit joined every cell: the first failure by shard order
         # raises as itself
         done = [c.result() for c in cells]
     pieces: list[list] = [[] for _ in range(T)]
-    for (dev, tiles, frames), (body, sizes, subs, stages) in zip(shards, done):
-        if cell_stages is not None:
-            cell_stages.append(stages)
+    for (dev, tiles, frames), (body, sizes, subs) in zip(shards, done):
         nf = frames.stop - frames.start
         ends = np.concatenate([[0], np.cumsum(sizes)])
         for k, t in enumerate(range(tiles.start, tiles.stop)):
@@ -765,10 +735,10 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
             tail = samples_batch[t, n_full * blocksize :].astype(np.int64) - zero_point
         md5 = b"\x00" * 16
         if compute_md5:
-            with record_function("frtt.tile_md5"):
+            with span("frtt.tile_md5"):
                 md5 = md5_of_samples(samples_batch[t].astype(np.int64) - zero_point,
                                      bits_per_sample)
-        with record_function("frtt.tile_header"):
+        with span("frtt.tile_header"):
             out.append(_assemble_stream(
                 b"".join(frames_t), np.concatenate(sizes_t), np.concatenate(subs_t), tail, n,
                 channels, sample_rate, bits_per_sample, blocksize, cfg, md5, comments_list[t],

@@ -75,7 +75,7 @@ from .ops.normalization import (
     normalize_lossless,
     normalize_to_audio,
 )
-from .utils.profiling import StageTimer
+from .utils.profiling import StageTimer, carry, request_method, span
 
 logger = logging.getLogger("flac_raster_tpu_torch.converter")
 
@@ -185,6 +185,7 @@ class RasterFLACConverter:
         timer.report(logging.DEBUG)
         logger.info("converted %s -> %s %s", flac_path, tiff_path, data.shape)
 
+    @request_method("frtt.encode")
     def encode_array(
         self,
         data: np.ndarray,
@@ -253,6 +254,7 @@ class RasterFLACConverter:
             bps = params.bits_per_sample
         return samples, sample_rate, bps, zero, params
 
+    @request_method("frtt.encode")
     def encode_array_batch(
         self,
         tiles: np.ndarray,
@@ -323,6 +325,7 @@ class RasterFLACConverter:
             comments.update(extra_comments)
         return comments
 
+    @request_method("frtt.encode")
     def encode_array_device(
         self,
         data: torch.Tensor,
@@ -406,7 +409,7 @@ class RasterFLACConverter:
         sample_rate, _ = calculate_audio_params(data, dt)
         with (timer.stage("encode", nbytes),
               ThreadPoolExecutor(max_workers=1, thread_name_prefix="frtt-md5") as pool):
-            md5 = pool.submit(_md5_of_rows, rows, zero, bps) if compute_md5 else None
+            md5 = pool.submit(carry(_md5_of_rows), rows, zero, bps) if compute_md5 else None
             blob = encode_flac_device(
                 rows, sample_rate, bps, compression_level=compression_level,
                 comments=comments, compute_md5=False, zero_point=zero, device=self.device,
@@ -440,6 +443,7 @@ class RasterFLACConverter:
             meta = dict(meta, width=width, height=height)
         return meta, width, height
 
+    @request_method("frtt.decode")
     def decode_bytes_device(self, blob: bytes, sidecar_path=None,
                             override_dims: tuple[int, int] | None = None, scan: str = "full"):
         """Decode FLAC bytes on the converter's device; the raster never
@@ -465,13 +469,14 @@ class RasterFLACConverter:
         spatial streamer's ``decode_bbox_device``)."""
         params = meta.get("normalization")
         bps = decoded.streaminfo.bits_per_sample
-        # band-major layout first, on int32 (the narrow unsigned types
-        # support few operations), then the elementwise denormalization
-        data = _band_major(decoded.samples, width, height)
-        if params is None:
-            return denormalize_device(data, _reference_params(meta, bps), bits_per_sample=bps,
-                                      soundfile_compat=True)
-        return denormalize_device(data, params, bits_per_sample=bps)
+        with span("frtt.decode.inverse"):
+            # band-major layout first, on int32 (the narrow unsigned types
+            # support few operations), then the elementwise denormalization
+            data = _band_major(decoded.samples, width, height)
+            if params is None:
+                return denormalize_device(data, _reference_params(meta, bps),
+                                          bits_per_sample=bps, soundfile_compat=True)
+            return denormalize_device(data, params, bits_per_sample=bps)
 
     def decode_bytes(
         self,
@@ -596,4 +601,5 @@ class RasterFLACConverter:
 
 def _md5_of_rows(rows: torch.Tensor, zero: int, bps: int) -> bytes:
     """STREAMINFO's MD5 of device rows minus their zero point (worker thread)."""
-    return md5_of_samples(to_host(rows).astype(np.int64) - zero, bps)
+    with span("frtt.md5"):
+        return md5_of_samples(to_host(rows).astype(np.int64) - zero, bps)

@@ -37,6 +37,8 @@ from pathlib import Path
 from typing import List, Optional, Sequence, Tuple, Union
 from urllib.parse import urlparse
 
+from ..utils.profiling import carry
+
 logger = logging.getLogger("flac_raster_tpu_torch.remote")
 
 __all__ = [
@@ -312,12 +314,12 @@ class RemoteFile:
                     if body is not None:
                         return [first] + [body[s : e + 1] for s, e in ranges[1:]]
                     futures = [
-                        _shared_executor().submit(self.read_range, s, e)
+                        _shared_executor().submit(carry(self.read_range), s, e)
                         for s, e in ranges[1:]
                     ]
                     return [first] + [f.result() for f in futures]
         futures = [
-            _shared_executor().submit(self.read_range, s, e) for s, e in ranges
+            _shared_executor().submit(carry(self.read_range), s, e) for s, e in ranges
         ]
         return [f.result() for f in futures]
 

@@ -38,6 +38,7 @@ from ..io.geotiff import open_geotiff
 from ..io.remote import RemoteFile, _shared_executor, is_remote_url
 from ..parallel import decode_flac_batch_mesh
 from ..parallel import mesh as device_mesh
+from ..utils.profiling import carry, request_method
 from .flac_format import (
     BLOCK_VORBIS_COMMENT,
     build_flac_header,
@@ -408,6 +409,7 @@ class SpatialFLACStreamer:
             for f, blob in zip(*self._tiles(bbox))
         ]
 
+    @request_method("frtt.decode")
     def decode_bbox_device(self, bbox: Tuple[float, float, float, float]):
         """``decode_bbox`` with the tiles decoded and inverted on the device:
         a list of (frame, (bands, h, w) tensor on the device).
@@ -465,11 +467,11 @@ class SpatialFLACStreamer:
             return f, tile, src, done
 
         pool = _shared_executor()
-        nxt = pool.submit(prepare, frames[0], blobs[0]) if frames else None
+        nxt = pool.submit(carry(prepare), frames[0], blobs[0]) if frames else None
         for i in range(len(frames)):
             f, tile, src, done = nxt.result()
             if i + 1 < len(frames):
-                nxt = pool.submit(prepare, frames[i + 1], blobs[i + 1])
+                nxt = pool.submit(carry(prepare), frames[i + 1], blobs[i + 1])
             if done is not None:
                 torch.cuda.current_stream(dev).wait_event(done)
             yield f, tile

@@ -33,7 +33,6 @@ import functools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .bits import wrap32
 from .device_codec import (
@@ -49,6 +48,7 @@ from .device_codec import (
 from .pack import pack_tokens
 from .stereo import CHAN_CODES, SLOT0_VARIANT, SLOT1_VARIANT
 from .wide_codec import plan_blocks_wide
+from ..utils.profiling import span
 
 __all__ = [
     "plan_and_emit", "emit_plan", "emit_tokens", "normalize", "worst_case_words",
@@ -425,7 +425,7 @@ def plan_and_emit(
     if mid_side:
         plan, x, chan_code, ch_bps = _plan_mid_side(x, bps, **plan_kw)
     elif bps > MAX_DEVICE_BPS:
-        with record_function("frtt.plan_wide"):    # the wide planner, plain int64
+        with span("frtt.plan_wide"):    # the wide planner, plain int64
             plan = plan_blocks_wide(x.reshape(F * C, N), bps=bps, **plan_kw)
     else:
         plan = plan_blocks(x.reshape(F * C, N), bps=bps, **plan_kw)

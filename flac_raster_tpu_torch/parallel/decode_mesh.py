@@ -43,13 +43,12 @@ import logging
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
-from torch.profiler import record_function
-
 from ..codec.decoder import DecodedStream, _comments_of
 from ..codec.device_decoder import FrameBatch, decode_flac_device, stream_plan
 from ..codec.device_encoder import _indexed, device_scope
 from ..models.flac_format import parse_flac_metadata, parse_layout_block
 from ..ops.device_decode import SCAN_ENGINES
+from ..utils.profiling import carry, span
 from .mesh import host_tile_slice, tile_mesh
 
 logger = logging.getLogger("flac_raster_tpu_torch.decode_mesh")
@@ -95,7 +94,7 @@ def decode_flac_batch_mesh(blobs, verify_crc: bool = True, mesh=None, scan: str 
     plans: dict = {}
     comments: dict = {}
     classes: dict = {}
-    with record_function("frtt.decode.parse"):
+    with span("frtt.decode.parse"):
         for t, b in enumerate(blobs):
             si, blocks, frame_start = parse_flac_metadata(b)
             plan = stream_plan(b, si, parse_layout_block(blocks), frame_start)
@@ -130,7 +129,7 @@ def decode_flac_batch_mesh(blobs, verify_crc: bool = True, mesh=None, scan: str 
             for tiles, N, C, bps in jobs:
                 FrameBatch.capture([plans[t] for t in tiles], row, N, C, bps, scan)
         with ThreadPoolExecutor(len(rows), thread_name_prefix="frtt-row") as pool:
-            futures = [pool.submit(build, *r) for r in rows]
+            futures = [pool.submit(carry(build), *r) for r in rows]
         # the pool's exit joined every row: the lowest failing row raises
         built = [f.result() for f in futures]
     groups = [group for row in built for group in row]

@@ -161,7 +161,6 @@ def encode_flac_batch_mesh(
     compute_md5: bool = True,
     mesh=None,
     zero_point: int = 0,
-    cell_stages=None,
 ) -> list[bytes]:
     """Grid-sharded batch encode producing complete FLAC streams.
 
@@ -173,8 +172,8 @@ def encode_flac_batch_mesh(
     shift subtracted on the device, as in ``encode_flac_batch_device``.
     The grid's cells run at once, one host thread each
     (``device_encoder.encode_batch_shards``, which also says what a cell
-    holds in host memory and how an error surfaces); where
-    ``cell_stages`` is a list, each cell's stage times are appended to it.
+    holds in host memory and how an error surfaces); each cell is a
+    ``frtt.cell`` span of ``utils.profiling``'s log.
 
     A batch with no stream (T == 0), no full frame, or a blocksize that is
     not a power of two of at least 64 encodes stream by stream through
@@ -200,4 +199,4 @@ def encode_flac_batch_mesh(
             device=mesh.devices[0, 0])
     return encode_batch_shards(samples_batch, sample_rate, bits_per_sample, compression_level,
                                blocksize, comments_list, vendor, compute_md5, PLAN_CHUNK_FRAMES,
-                               zero_point, _shards(mesh, T, n_full), cell_stages)
+                               zero_point, _shards(mesh, T, n_full))

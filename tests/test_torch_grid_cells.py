@@ -18,6 +18,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from flac_raster_tpu.converter import RasterFLACConverter as JaxConverter
 from flac_raster_tpu.parallel import decode_flac_batch_mesh as jax_decode_batch_mesh
@@ -38,6 +39,7 @@ from flac_raster_tpu_torch.parallel import (
     mesh,
     tile_mesh,
 )
+from flac_raster_tpu_torch.utils import profiling
 
 N = 256             # a small blocksize keeps the JAX mesh compiles short
 BARRIER_S = 20      # a barrier that is not passed in this time breaks
@@ -101,7 +103,8 @@ def test_every_grid_equals_1x1_at_level5():
 def test_the_cells_are_inside_the_chunk_loop_at_once(name, monkeypatch):
     """Each cell waits at a barrier of as many parties as the grid has
     cells before its chunk loop: run in turn, the first would break it.
-    Each cell runs on a frtt-cell thread, and reports its stage times."""
+    Each cell runs on a frtt-cell thread, as a ``frtt.cell`` span of the
+    span log (a profiler running) with its stages' spans under it."""
     rows, cols = GRIDS[name]
     barrier = threading.Barrier(rows * cols, timeout=BARRIER_S)
     real = device_encoder._emit_full_frames
@@ -115,16 +118,23 @@ def test_the_cells_are_inside_the_chunk_loop_at_once(name, monkeypatch):
     batch, bps = _batch("mono-tail")
     want = encode_flac_batch_mesh(batch, 44100, bps, 1, blocksize=N, mesh=_grid("1x1"))
     monkeypatch.setattr(device_encoder, "_emit_full_frames", at_once)
-    stages = []
-    got = encode_flac_batch_mesh(batch, 44100, bps, 1, blocksize=N, mesh=_grid(name),
-                                 cell_stages=stages)
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = encode_flac_batch_mesh(batch, 44100, bps, 1, blocksize=N, mesh=_grid(name))
+    spans = profiling.spans()
+    profiling.clear_spans()
     assert got == want and not barrier.broken
     assert len(threads) == rows * cols and all(t.startswith("frtt-cell") for t in threads)
-    assert len(stages) == rows * cols
+    cells = sorted((s for s in spans if s.name == "frtt.cell"),
+                   key=lambda s: (s.attrs["tiles"], s.attrs["frames"]))
+    assert len(cells) == rows * cols and all(s.thread.startswith("frtt-cell") for s in cells)
     if name == "1x2":
-        assert [(s["tiles"], s["frames"]) for s in stages] == [((0, 6), (0, 2)), ((0, 6), (2, 3))]
-    assert all(s["device"] == "cpu" and s["cell_s"] > 0 and "plan_and_emit_s" in s
-               and "drain_wait_s" in s for s in stages)
+        assert [(s.attrs["tiles"], s.attrs["frames"]) for s in cells] == [
+            ((0, 6), (0, 2)), ((0, 6), (2, 3))]
+    assert all(s.device == "cpu" and s.end_ns > s.start_ns for s in cells)
+    for cell in cells:
+        under = {s.name for s in spans if s.parent == cell.id}
+        assert {"frtt.plan_and_emit", "frtt.drain_wait"} <= under
     assert not _workers()
 
 

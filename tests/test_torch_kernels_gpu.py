@@ -932,8 +932,11 @@ def test_grid_encode_on_card_1x2_equals_1x1(cuda, level, grid):
     """encode_flac_batch_mesh on 1 x 2, 2 x 1 and 2 x 2 grids of the card
     (its cells at once on frtt-cell threads, sharing the card's graphs)
     equals the 1 x 1 grid's bytes and encode_flac_device of each tile."""
+    from torch.profiler import ProfilerActivity, profile
+
     from flac_raster_tpu_torch import encode_flac_device
     from flac_raster_tpu_torch.parallel import encode_flac_batch_mesh, tile_mesh
+    from flac_raster_tpu_torch.utils import profiling
 
     rng = np.random.default_rng(level)
     t = np.arange(5 * 4096 + 333)
@@ -942,10 +945,13 @@ def test_grid_encode_on_card_1x2_equals_1x1(cuda, level, grid):
     kw = dict(zero_point=32768, compute_md5=True)
     rows, cols = map(int, grid.split("x"))
     one = encode_flac_batch_mesh(x, 44100, 16, level, mesh=tile_mesh(devices=[cuda]), **kw)
-    stages = []
-    many = encode_flac_batch_mesh(x, 44100, 16, level, cell_stages=stages, mesh=tile_mesh(
-        devices=[cuda] * (rows * cols), blocks_axis=cols), **kw)
-    assert one == many and len(stages) == rows * cols
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        many = encode_flac_batch_mesh(x, 44100, 16, level, mesh=tile_mesh(
+            devices=[cuda] * (rows * cols), blocks_axis=cols), **kw)
+    cells = [s for s in profiling.spans() if s.name == "frtt.cell"]
+    profiling.clear_spans()
+    assert one == many and len(cells) == rows * cols
     for blob, tile in zip(one, x):
         assert blob == encode_flac_device(tile, 44100, 16, level, device=cuda, **kw)
 

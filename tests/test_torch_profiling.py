@@ -82,6 +82,26 @@ def test_device_trace_holds_the_chunk_loop_and_the_stages(tmp_path, caplog):
     assert np.array_equal(back, data)
 
 
+def test_device_trace_holds_the_drain_workers_spans(tmp_path):
+    """The profiler records its own thread's ranges only; the trace file
+    also holds the spans the drain worker logged, under its thread's name
+    and the request of the encode."""
+    data = np.arange(64 * 256, dtype=np.uint16).reshape(1, 64, 256) * 3
+    conv = RasterFLACConverter(device="cpu")
+    with device_trace(tmp_path, "cpu"):
+        conv.encode_array(data, compression_level=1)
+    (path,) = tmp_path.glob("frtt.*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    (root,) = [e for e in events if e.get("name") == "frtt.encode"]
+    crc = [e for e in events if e.get("name") == "frtt.host_crc"]
+    assert crc and all(names[e["tid"]].startswith("frtt-drain") for e in crc)
+    assert all(e["args"]["request"] is not None and e["tid"] != root["tid"] for e in crc)
+    assert all(root["ts"] <= e["ts"] and e["ts"] + e["dur"] <= root["ts"] + root["dur"]
+               for e in crc)
+
+
 def test_device_trace_without_a_directory_does_nothing(tmp_path):
     with device_trace(None):
         pass

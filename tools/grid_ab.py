@@ -10,8 +10,7 @@ chip_smoke.py's 10980 x 10980 uint16 band into its 441 interior tiles of
   * ``parallel.encode_flac_batch_mesh`` of the tiles on the 1 x 1, 1 x 2
     and 2 x 1 grids of ``cuda:0`` (a grid may name the card more than
     once), each once to warm up, then ``--repeats`` timings (the host's
-    clock, ending in a synchronize); where the tree reports them
-    (``cell_stages``), each cell's stage times of the last timing;
+    clock, ending in a synchronize);
   * the same encode, on the 1 x 1 grid, of the band's 42 edge tiles of
     228 x 512 (its bottom row, and its right column transposed): 28.5
     frames a tile, so each tile has a tail and the rows are no view of
@@ -31,7 +30,6 @@ on the card from the repository root::
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import subprocess
 import sys
@@ -75,7 +73,6 @@ def worker(tree: Path, repeats: int) -> dict:
     edge_pcm = edges.reshape(len(edges), -1, 1)
     del band
     row["tiles"], row["raw_MB"] = len(pcm), interior.nbytes / 1e6
-    reports_cells = "cell_stages" in inspect.signature(encode_flac_batch_mesh).parameters
 
     def grid(rows, cols):
         return tile_mesh(devices=[dev] * (rows * cols), blocks_axis=cols)
@@ -98,15 +95,11 @@ def worker(tree: Path, repeats: int) -> dict:
             raise AssertionError(f"the {name} grid's streams differ from the 1x1 grid's")
         times = []
         for _ in range(repeats):
-            cells = []
-            blobs, dt = timed(lambda: encode_flac_batch_mesh(
-                pcm, sample_rate, bps, LEVEL, **kw, **({"cell_stages": cells}
-                                                       if reports_cells else {})))
+            blobs, dt = timed(lambda: encode_flac_batch_mesh(pcm, sample_rate, bps, LEVEL, **kw))
             if blobs != streams:
                 raise AssertionError(f"the {name} grid's streams changed between repeats")
             times.append(dt)
         row[f"encode_{name}_s"] = times
-        row[f"encode_{name}_cells"] = cells if reports_cells else None
     row["stream_bytes"] = sum(len(b) for b in streams)
     kw = dict(compute_md5=False, mesh=grid(1, 1), zero_point=zero)
     edge_streams, row["encode_edges_1x1_first_s"] = timed(
