@@ -20,6 +20,7 @@ order (``ops/lpc``).
 from __future__ import annotations
 
 import hashlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,7 +42,11 @@ from ..ops.lpc import lpc_restore_batch
 from ..utils.profiling import span
 
 __all__ = ["decode_flac", "decode_flac_range", "decode_frame_span", "covering_frames",
-           "DecodedStream", "md5_of_samples"]
+           "DecodedStream", "md5_of_samples", "md5_of_pcm_stream", "md5_route", "pcm_width"]
+
+# the most bytes an array of the streaming MD5 holds: a slice's PCM, or its
+# int64 difference on the "convert" route
+MD5_SLICE_BYTES = 4 << 20
 
 
 @dataclass
@@ -407,3 +412,74 @@ def md5_of_samples(samples: np.ndarray, bits_per_sample: int) -> bytes:
         raw = s.astype("<i4").tobytes()
     with span("frtt.md5.hash"):
         return hashlib.md5(raw).digest()
+
+
+def pcm_width(bits_per_sample: int) -> int:
+    """Bytes a sample of the MD5's PCM: the byte-padded bit depth."""
+    return (bits_per_sample + 7) // 8
+
+
+def md5_route(dtype, bits_per_sample: int, zero_point: int) -> str:
+    """How ``md5_of_pcm_stream`` makes PCM of integer samples of ``dtype``:
+
+    * ``"view"``: no zero point, and the dtype's itemsize is the PCM width
+      (little-endian): the samples' own bytes, as narrowing wraps;
+    * ``"sign_flip"``: the dtype's itemsize is the PCM width and the zero
+      point its top bit (uint16 - 32768): the top bit flipped, which is the
+      wrapped subtraction;
+    * ``"convert"``: any other, the zero point subtracted in int64, then
+      narrowed, or packed to 3 bytes.
+    """
+    dtype = np.dtype(dtype)
+    width = pcm_width(bits_per_sample)
+    if dtype.itemsize != width or dtype.str[0] == ">":
+        return "convert"
+    if zero_point == 0:
+        return "view"
+    if zero_point == 1 << (8 * width - 1):
+        return "sign_flip"
+    return "convert"
+
+
+def md5_of_pcm_stream(samples: np.ndarray, bits_per_sample: int, zero_point: int = 0,
+                      stop: threading.Event | None = None) -> bytes | None:
+    """``md5_of_samples(samples.astype(np.int64) - zero_point,
+    bits_per_sample)`` of (n,) or (n, C) integer samples, hashed a slice
+    of rows at a time (each update a ``frtt.md5.hash`` span): no array it
+    makes holds more than ``MD5_SLICE_BYTES`` (or one row), whatever n.
+    The route (``md5_route``) follows the dtype, the bit depth and the zero
+    point.  Returns None, part hashed, once ``stop`` is set: it is read
+    before each slice."""
+    rows = samples if samples.ndim == 2 else samples.reshape(len(samples), 1)
+    route = md5_route(rows.dtype, bits_per_sample, zero_point)
+    width = pcm_width(bits_per_sample)
+    step = max(1, MD5_SLICE_BYTES // (rows.shape[1] * (8 if route == "convert" else width)))
+    cap = step * rows.shape[1]
+    if route == "sign_flip":
+        unsigned = np.dtype(f"<u{width}")
+        top = np.array(1 << (8 * width - 1), unsigned)
+        out = np.empty(cap, unsigned)
+    elif route == "convert":
+        diff = np.empty(cap, np.int64)
+        out = np.empty(cap * width, np.uint8) if width == 3 else np.empty(cap, f"<i{width}")
+    h = hashlib.md5()
+    for r0 in range(0, len(rows), step):
+        if stop is not None and stop.is_set():
+            return None
+        x = np.ascontiguousarray(rows[r0 : r0 + step]).reshape(-1)
+        if route == "view":
+            pcm = x
+        elif route == "sign_flip":
+            pcm = np.bitwise_xor(x.view(unsigned), top, out=out[: x.size])
+        else:
+            d = np.subtract(x, zero_point, out=diff[: x.size], dtype=np.int64, casting="unsafe")
+            if width == 3:       # the low 3 bytes of each little-endian int64
+                pcm = out[: 3 * x.size]
+                np.copyto(pcm.reshape(-1, 3), d.astype("<i8", copy=False).view(np.uint8)
+                          .reshape(-1, 8)[:, :3])
+            else:
+                pcm = out[: x.size]
+                np.copyto(pcm, d, casting="unsafe")
+        with span("frtt.md5.hash"):
+            h.update(pcm)
+    return h.digest()

@@ -38,12 +38,17 @@ double-buffered memory; and the drain (err flag, byteswap, CRC patch) runs
 on a worker thread.  A partial chunk is padded with zero frames to a power
 of two, as the JAX loop pads it, so few shapes are captured.  On the CPU
 the same loop runs each chunk eagerly, unpadded.
+
+The STREAMINFO MD5 of ``encode_flac_device`` is hashed on a ``frtt-md5``
+worker while the chunk loop runs, a slice of the samples' own PCM at a time
+(``decoder.md5_of_pcm_stream``), and joined before the header is written.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -56,7 +61,7 @@ from ..ops.stereo import midside_ok
 from ..utils.profiling import carry, span
 from . import chunk_graph, host_encoder
 from .chunk_graph import SIGNED_VIEWS
-from .decoder import md5_of_samples
+from .decoder import md5_of_pcm_stream, md5_of_samples, md5_route, pcm_width
 from .encoder import (
     _BPS_CODES,
     _SAMPLE_RATE_CODES,
@@ -562,20 +567,41 @@ def encode_flac_device(
         return samples[g0 * blocksize : g1 * blocksize].reshape(g1 - g0, blocksize, channels)
 
     layout = _frame_layout(blocksize, bits_per_sample, sample_rate, channels, cfg)
-    frames, sizes, subs = _emit_full_frames(
-        frames_of, np.arange(n_full), channels, layout, zero_point,
-        max(1, int(plan_chunk_frames)), dev, samples.dtype if on_device else _torch_dtype(dtype))
-    tail = None
-    if n_full * blocksize < n:
-        tail = samples[n_full * blocksize :]
-        tail = (to_host(tail) if on_device else tail).astype(np.int64) - zero_point
+    stop = threading.Event()
     md5 = b"\x00" * 16
-    if compute_md5:
-        with span("frtt.md5"):      # to the host, widen, narrow, hash (frtt.md5.hash)
-            pcm = to_host(samples) if on_device else samples
-            md5 = md5_of_samples(pcm.astype(np.int64) - zero_point, bits_per_sample)
+    # the MD5 hashes on its worker while the chunk loop runs
+    with ThreadPoolExecutor(1, thread_name_prefix="frtt-md5") as pool:
+        try:
+            job = (pool.submit(carry(_md5_job), samples, bits_per_sample, zero_point, stop)
+                   if compute_md5 else None)
+            frames, sizes, subs = _emit_full_frames(
+                frames_of, np.arange(n_full), channels, layout, zero_point,
+                max(1, int(plan_chunk_frames)), dev,
+                samples.dtype if on_device else _torch_dtype(dtype))
+            tail = None
+            if n_full * blocksize < n:
+                tail = samples[n_full * blocksize :]
+                tail = (to_host(tail) if on_device else tail).astype(np.int64) - zero_point
+            if job is not None:
+                with span("frtt.md5_wait"):
+                    md5 = job.result()
+        finally:
+            stop.set()      # a failed loop's worker stops at its next slice; the pool joins it
     return _assemble_stream(frames, sizes, subs, tail, n, channels, sample_rate,
                             bits_per_sample, blocksize, cfg, md5, comments, vendor, padding)
+
+
+def _md5_job(samples, bits_per_sample: int, zero_point: int, stop: threading.Event):
+    """STREAMINFO's MD5 of the encoder's (n, C) samples less their zero
+    point, streamed from them a slice at a time (``decoder.
+    md5_of_pcm_stream``); a tensor is pulled to the host first.  The
+    ``frtt.md5`` span's ``route`` and ``bytes`` say how and how much."""
+    dtype = np_dtype(samples) if isinstance(samples, torch.Tensor) else samples.dtype
+    with span("frtt.md5", route=md5_route(dtype, bits_per_sample, zero_point),
+              bytes=samples.shape[0] * samples.shape[1] * pcm_width(bits_per_sample)):
+        if isinstance(samples, torch.Tensor):
+            samples = to_host(samples)
+        return md5_of_pcm_stream(samples, bits_per_sample, zero_point, stop)
 
 
 def encode_flac_batch_device(

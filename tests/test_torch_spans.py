@@ -180,11 +180,39 @@ def test_two_encodes_at_once_keep_their_own_requests(log, small_chunks):
     for client, chunks in (("client-0", 5), ("client-1", 2)):
         root = roots[client]
         mine = [s for s in spans if s.request == root.id]
-        assert all(t.startswith("frtt-drain") for t in {s.thread for s in mine} - {client})
+        assert all(t.startswith(("frtt-drain", "frtt-md5"))
+                   for t in {s.thread for s in mine} - {client})
+        (md5,) = _named(mine, "frtt.md5")
+        assert md5.thread.startswith("frtt-md5") and _inside(md5, root)
         for name in ("frtt.readback", "frtt.host_crc"):
             drained = _named(mine, name)
             assert len(drained) == chunks and all(_inside(s, root) for s in drained)
             assert all(s.thread.startswith("frtt-drain") for s in drained)
+
+
+@pytest.mark.parametrize("dtype,route", [(np.uint16, "sign_flip"), (np.float32, "view")])
+def test_the_md5_hashes_on_its_worker_while_the_client_waits(log, small_chunks, dtype, route):
+    """``frtt.md5`` lies on the ``frtt-md5`` worker under the request's id,
+    with its route and PCM bytes (the band's uint16 flipped, the DEM's
+    folded int32 viewed); its updates inside it; ``frtt.md5_wait`` on the
+    client's thread, after the chunk loop."""
+    conv = RasterFLACConverter(device="cpu")
+    data = _raster(600)
+    if dtype == np.float32:
+        data = (data.astype(np.float32) / 7).astype(np.float32)
+    blob, _ = _traced(lambda: conv.encode_array(data, compression_level=1))
+    assert blob == conv.encode_array(data, compression_level=1)
+    spans = log()
+    (root,) = _named(spans, "frtt.encode")
+    (md5,) = _named(spans, "frtt.md5")
+    assert md5.thread.startswith("frtt-md5") and md5.thread != root.thread
+    assert md5.request == root.id and _inside(md5, root)
+    assert md5.attrs == {"route": route, "bytes": data.size * (2 if dtype == np.uint16 else 4)}
+    hashed = _named(spans, "frtt.md5.hash")
+    assert hashed and all(s.parent == md5.id and _inside(s, md5) for s in hashed)
+    (wait,) = _named(spans, "frtt.md5_wait")
+    assert wait.thread == root.thread and wait.request == root.id and _inside(wait, root)
+    assert max(s.end_ns for s in _named(spans, "frtt.drain_wait")) <= wait.start_ns
 
 
 def test_a_span_is_on_the_clock_of_its_kineto_event(log):
