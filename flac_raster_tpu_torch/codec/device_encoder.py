@@ -57,8 +57,8 @@ import torch
 from .. import native
 from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_header
 from ..ops.device_emit import worst_case_words
-from ..ops.stereo import midside_ok
-from ..utils.profiling import carry, span
+from ..ops.stereo import CHAN_CODES, midside_ok
+from ..utils.profiling import carry, count, span
 from . import chunk_graph, host_encoder
 from .chunk_graph import SIGNED_VIEWS
 from .decoder import md5_of_pcm_stream, md5_of_samples, md5_route, pcm_width
@@ -76,6 +76,9 @@ __all__ = ["encode_flac_device", "encode_flac_batch_device", "encode_batch_shard
 logger = logging.getLogger("flac_raster_tpu_torch.device_encoder")
 
 _UTF8_THRESH = np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int64)
+# a 2-channel frame's channel assignment code (the high nibble of its
+# header's 4th byte) by the name its count takes on a span
+STEREO_CODES = dict(zip(("lr", "ls", "rs", "ms"), CHAN_CODES.tolist()))
 PLAN_CHUNK_FRAMES = 2048   # frames a chunk of the encoder's loop, by default
 # the drain's worker threads, and the host output slots they need: chunk i
 # reuses the slot of chunk i - DRAIN_SLOTS, whose drain must have ended
@@ -145,6 +148,13 @@ def _patch_crcs(buf: np.ndarray, frame_bits: np.ndarray, hdr_bits: np.ndarray) -
     frame_start = (np.cumsum(frame_bits) - frame_bits) >> 3
     native.crc8_patch(buf, frame_start, hdr_bits >> 3)
     native.crc16_patch(buf, frame_start, (frame_bits >> 3) - 2)
+
+
+def _count_assignments(codes: np.ndarray) -> None:
+    """Count frames' stereo channel assignment ``codes`` on the innermost
+    open span (``profiling.count``: ``lr``, ``ls``, ``rs``, ``ms``)."""
+    n = np.bincount(codes, minlength=16)
+    count(**{name: n[code] for name, code in STEREO_CODES.items()})
 
 
 def _check_stream(channels: int, bits_per_sample: int, dtype) -> None:
@@ -372,7 +382,9 @@ class _CardChunks:
 def _drain(bounds: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail_bits: int):
     """The bytes, CRCs patched, frame sizes and first C - 1 subframe sizes
     of the chunk of frames ``bounds`` = (g0, g1), from its dispatched
-    outputs (on the drain's worker thread)."""
+    outputs (on the drain's worker thread).  While a profiler runs, a
+    2-channel chunk's frames are counted by channel assignment on its
+    ``frtt.host_crc`` span."""
     g0, g1 = bounds
     done, words_t, head_t, padded = out
     with span("frtt.readback"):       # waits for the chunk's compute
@@ -386,12 +398,14 @@ def _drain(bounds: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail
             "of the pack kernel; its words are not valid"
         )
     total_bits = int(frame_bits.sum())
-    with span("frtt.host_crc"):      # the byteswap, the CRC patch and the bytes' copy
+    with span("frtt.host_crc") as logged:   # the byteswap, the CRC patch and the bytes' copy
         words = words_t[: (total_bits + 31) // 32].numpy()
         buf = words.view(np.uint32).astype(">u4").view(np.uint8)[: (total_bits + 7) // 8]
         fi = frame_numbers[g0:g1]
         n_bytes = np.sum(fi[:, None] >= _UTF8_THRESH[None, :], axis=1) + 1
         _patch_crcs(buf, frame_bits, 32 + n_bytes * 8 + bs_tail_bits)
+        if logged is not None and channels == 2:
+            _count_assignments(buf[((np.cumsum(frame_bits) - frame_bits) >> 3) + 3] >> 4)
         body = buf.tobytes()
     return body, frame_bits >> 3, subs[:, :-1].copy()
 
@@ -465,13 +479,16 @@ def _assemble_stream(frames: bytes, sizes: np.ndarray, subs: np.ndarray, tail, n
                      padding: int) -> bytes:
     """One stream from its full frames' bytes, sizes and subframe sizes,
     and the (bs, C) int64 PCM of its partial tail frame (None without
-    one): the tail frame is encoded on the host; STREAMINFO and the FRTP v2
-    layout block head the stream."""
+    one): the tail frame is encoded on the host (its channel assignment
+    counted on ``frtt.host_tail`` while a profiler runs); STREAMINFO and
+    the FRTP v2 layout block head the stream."""
     if tail is not None:
-        with span("frtt.host_tail"):    # the partial frame, on the host
+        with span("frtt.host_tail") as logged:   # the partial frame, on the host
             tail_bytes = host_encoder.emit_tail_frame(
                 tail, len(sizes), bits_per_sample, _SAMPLE_RATE_CODES.get(sample_rate, 0),
                 _BPS_CODES[bits_per_sample], cfg)
+            if logged is not None and channels == 2:
+                _count_assignments(np.array([tail_bytes[3] >> 4]))
         frames += tail_bytes
         sizes = np.append(sizes, len(tail_bytes))
         subs = np.concatenate([subs, np.zeros((1, channels - 1), np.int64)])  # no layout entry

@@ -18,6 +18,12 @@ port's spans:
     points open one (``frtt.encode``, ``frtt.decode``); it takes its own id
     as the request's id, which every span under it carries.  Inside an
     open request it is a plain span of that request.
+  * ``count`` -- integers added to the attributes of the innermost span
+    open in the caller's context (the encode's stereo channel assignments
+    a chunk, on ``frtt.host_crc``); nothing outside every span, so nothing
+    while no profiler runs.  A caller whose counting costs work of its own
+    does it only where its ``with span(...) as s`` gave a span (``s`` is
+    None while no profiler runs).
   * ``carry`` -- a callable bound to a copy of the caller's context, for
     work handed to another thread (the chunk loop's ``frtt-drain`` worker,
     the grid's ``frtt-cell`` and ``frtt-row`` threads, the MD5 worker):
@@ -65,8 +71,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 logger = logging.getLogger("flac_raster_tpu_torch.profiling")
 
-__all__ = ["Span", "span", "request_span", "request_method", "carry", "spans", "clear_spans",
-           "StageRecord", "StageTimer", "device_trace", "timed_stage"]
+__all__ = ["Span", "span", "request_span", "request_method", "count", "carry", "spans",
+           "clear_spans", "StageRecord", "StageTimer", "device_trace", "timed_stage"]
 
 # the most spans the log keeps (the oldest go first): a traced 45 s window of
 # the benchmark's band decode, four clients, logs about 25 000
@@ -159,6 +165,18 @@ def request_method(name: str):
                 return method(self, *args, **kwargs)
         return run
     return wrap
+
+
+def count(**n: int) -> None:
+    """Add each ``n`` to the attribute of that name of the innermost span
+    open in this context (0 where it has none); nothing outside every
+    span, as while no profiler runs."""
+    open_span = _OPEN.get()
+    if open_span is None:
+        return
+    attrs = open_span.attrs
+    for k, v in n.items():
+        attrs[k] = attrs.get(k, 0) + int(v)
 
 
 def carry(fn):
