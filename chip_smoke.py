@@ -354,10 +354,11 @@ def kernel_entry(name, source, replaces, max_abs_err, ms, plain_ms, bnd, library
 
 def counters() -> dict:
     from flac_raster_tpu_torch.ops import (
-        gather, pack, restore, rice_cost, rice_group, rice_scan, subframe,
+        body_check, gather, pack, restore, rice_cost, rice_group, rice_scan, subframe,
     )
 
     c = {"rice_cost_sums": rice_cost.LAUNCHES, "gather_windows": gather.LAUNCHES,
+         "body_check": body_check.LAUNCHES,
          "rice_scan_full": rice_scan.LAUNCHES, "rice_group_step": rice_group.LAUNCHES,
          "restore": restore.LAUNCHES, "subframe_parse": subframe.LAUNCHES["parse"],
          "subframe_finish": subframe.LAUNCHES["finish"]}
@@ -367,10 +368,11 @@ def counters() -> dict:
 
 def reset_counters() -> None:
     from flac_raster_tpu_torch.ops import (
-        gather, pack, restore, rice_cost, rice_group, rice_scan, subframe,
+        body_check, gather, pack, restore, rice_cost, rice_group, rice_scan, subframe,
     )
 
     rice_cost.LAUNCHES = gather.LAUNCHES = rice_scan.LAUNCHES = restore.LAUNCHES = 0
+    body_check.LAUNCHES = 0
     rice_group.LAUNCHES = 0
     for v in pack.LAUNCHES:
         pack.LAUNCHES[v] = 0
@@ -818,6 +820,81 @@ def phase_decode_kernels(blob: bytes, dev, F: int = 4096) -> list[dict]:
     ]
 
 
+def phase_body_check(blob: bytes, dev) -> dict:
+    """The frame check and byte swap (``ops/body_check``) on the whole body
+    of a file as the decoder uploads it: against the plain version and the
+    host's pass (tolerance 0), clean and with one byte flipped in every
+    seventh frame (exactly those flagged, and the card's decode of that file
+    raising the CPU route's CRC-16 error); then timed by CUDA events and by
+    the profiler's kernel time, each launch after an L2 flush, as a decode
+    finds the body after its upload; the plain version once."""
+    import torch
+
+    from flac_raster_tpu_torch import decode_flac_device
+    from flac_raster_tpu_torch.codec.device_decoder import crc_mismatches, first_crc_mismatch
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
+    from flac_raster_tpu_torch.ops import body_check
+
+    _, blocks, start = parse_flac_metadata(blob)
+    starts = parse_layout_block(blocks).absolute_offsets(start)
+    lo = int(starts[0]) & ~3
+    body = np.frombuffer(blob, np.uint8)[lo:]
+    body = np.concatenate([body, np.zeros(-body.size % 4, np.uint8)])
+    offs, sizes = starts[:-1] - lo, np.diff(starts)
+    raw = torch.from_numpy(body.view(np.int32).copy()).to(dev)
+    frames = torch.from_numpy(np.stack([offs, sizes, np.ones_like(sizes)])).to(dev)
+    out, flags = body_check.body_check(raw, frames)
+    ref_out, ref_flags = body_check.body_check_reference(raw, frames)
+    torch.cuda.synchronize()
+    host_words = torch.from_numpy(body.view(np.uint32).byteswap().view(np.int32)).to(dev)
+    same = (torch.equal(out, ref_out) and torch.equal(flags, ref_flags)
+            and torch.equal(out, host_words) and not flags.any()
+            and first_crc_mismatch(body, offs, sizes) is None)
+    if not same:
+        raise AssertionError("body_check differs from its plain version or the host's pass")
+    hit = np.arange(offs.size) % 7 == 0
+    bad = body.copy()
+    bad[(offs + sizes // 2)[hit]] ^= 0x10
+    raw_bad = torch.from_numpy(bad.view(np.int32).copy()).to(dev)
+    out, flags = body_check.body_check(raw_bad, frames)
+    ref_out, ref_flags = body_check.body_check_reference(raw_bad, frames)
+    flags = flags.cpu().numpy()
+    host_bad = crc_mismatches(bad, offs, sizes)
+    if not (np.array_equal(flags, hit) and np.array_equal(ref_flags.cpu().numpy(), hit)
+            and np.array_equal(host_bad, hit) and torch.equal(out, ref_out)
+            and np.array_equal(out.cpu().numpy(), bad.view(np.uint32).byteswap().view(np.int32))):
+        raise AssertionError(f"body_check flags {np.flatnonzero(flags)[:8]} ... on a body with "
+                             f"every seventh frame corrupt, not exactly those")
+    bad_blob = bytes(blob[:lo]) + bad[: len(blob) - lo].tobytes()
+    errors = []
+    for where in ("cpu", dev):
+        try:
+            decode_flac_device(bad_blob, device=where)
+        except ValueError as exc:
+            errors.append(str(exc))
+    want = f"frame CRC-16 mismatch at byte {int(starts[0])}"
+    if errors != [want, want]:
+        raise AssertionError(f"a decode of the corrupt file raised {errors}, not [{want!r}] x 2")
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=dev)
+    ev_ms = flushed_events_ms(lambda: body_check.body_check(raw, frames), flush)
+    dev_ms = profiled_kernel_ms(flushed(lambda: body_check.body_check(raw, frames), flush),
+                                "body_check_kernel")
+    warm_ms = cuda_ms(lambda: body_check.body_check(raw, frames), iters=20)
+    del flush
+    plain_ms = cuda_ms(lambda: body_check.body_check_reference(raw, frames), iters=1, warmup=0)
+    bnd = bound(2 * body.size, 0)       # the body read once and written once
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms ({share(bnd, dev_ms)})"
+    log(f"body_check: {offs.size} frames, {body.size} bytes: identical to plain and to the "
+        f"host's CRC-16 pass and byteswap (tolerance 0), clean and with {int(hit.sum())} corrupt "
+        f"frames (exactly those flagged; the card's decode raised {want!r}, as the CPU "
+        f"route's); after an L2 flush: events "
+        f"{ev_ms:.4f} ms ({share(bnd, ev_ms)}), on the device (profiler) {dev_txt}; warm "
+        f"{warm_ms:.4f} ms; plain {plain_ms:.1f} ms; bound {bnd}")
+    return kernel_entry("body_check", "body_check.cu", "none (the host's CRC-16 pass and "
+                        "byteswap)", 0, ev_ms, plain_ms, bnd, ms_device_l2_flushed=dev_ms,
+                        ms_warm=warm_ms, frames=int(offs.size), body_bytes=int(body.size))
+
+
 def unbucketed_window(chunk: dict) -> int:
     """The window width the chunk's frames need (whole 16-byte rows), as
     ``device_decoder.window_words`` gives it before its power-of-two
@@ -1174,10 +1251,11 @@ def profile_decode(blob: bytes) -> None:
 
 
 # the kernels a decode launches, by Rice engine
+# (the chunk's kernels, then the body's check and swap, once a batch)
 DECODE_KERNELS = {"full": ["gather_windows", "subframe_parse", "rice_scan_full", "restore",
-                           "subframe_finish"],
+                           "subframe_finish", "body_check"],
                   "group": ["gather_windows", "subframe_parse", "rice_group_step", "restore",
-                            "subframe_finish"]}
+                            "subframe_finish", "body_check"]}
 
 
 def encode_path(conv, raster: np.ndarray, level: int, label: str, card: str,
@@ -2202,7 +2280,8 @@ def decode_graph_phase(files: dict, scene: np.ndarray, work: Path, card: str, de
             engine = DECODE_KERNELS[scan][2]
             per_chunk = {k: n / chunks for k, n in launches.items()}
             if (device_decoder.HOST_ROUTES != routes or len(chunk_graph.CAPTURES) != n_caps
-                    or any(per_chunk[k] != 1 for k in DECODE_KERNELS[scan] if k != engine)):
+                    or launches["body_check"] != 1
+                    or any(per_chunk[k] != 1 for k in DECODE_KERNELS[scan][:-1] if k != engine)):
                 raise AssertionError(f"the {label} decode ({scan}): launches {launches} over "
                                      f"{chunks} chunks, or a capture or host route")
             with eager_chunks():
@@ -2407,6 +2486,7 @@ def run(work: Path, t_start: float) -> int:
     files[f"{TAIL_SIZE}x{TAIL_SIZE} level 5"] = blob
     host_round_trip(conv, blob, tail_scene, "tail")
     decode_on_card(blob, tail_scene, dev, card, "tail")
+    kernels.append(phase_body_check(blob, dev))
     size_envelope(blob, JAX_TAIL_FRAME_BYTES, "tail")
     del tail_scene, blob
     torch.cuda.empty_cache()

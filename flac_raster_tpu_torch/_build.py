@@ -128,6 +128,8 @@ def kernels():
         fn.restype = ctypes.c_int
     lib.frtt_gather_windows.argtypes = [vp, i64, vp, i64, i64, vp, vp]
     lib.frtt_gather_windows.restype = ctypes.c_int
+    lib.frtt_body_check.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp]
+    lib.frtt_body_check.restype = ctypes.c_int
     lib.frtt_rice_scan_full.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, vp, vp, i32,
                                         vp, vp, vp, vp]
     lib.frtt_rice_scan_full.restype = ctypes.c_int

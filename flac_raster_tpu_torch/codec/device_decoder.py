@@ -2,12 +2,14 @@
 the device.
 
 The port of ``flac_raster_tpu.codec.device_decoder.decode_flac_device``.
-The host parses the metadata and the FRTP layout block, checks every
-frame's CRC-16 over the compressed bytes (native C) and computes each
-frame's header length; the body is byteswapped to big-endian words on the
-host and uploaded once, from pinned memory.  Per chunk of frames the card
-gathers one window of words per frame (``ops/gather``) and decodes all
-subframes of all frames in one batched pass (``ops/device_decode``), with
+The host parses the metadata and the FRTP layout block and computes each
+frame's header length; the body is uploaded once, as stored, from pinned
+memory, and one kernel pass on the card checks every full frame's CRC-16
+and swaps the body to big-endian words (``ops/body_check``); the host
+checks the tail frames it decodes, and on the CPU, or for a stream with no
+full frame, checks every frame in native C and swaps the words.  Per chunk
+of frames the card gathers one window of words per frame (``ops/gather``)
+and decodes all subframes of all frames in one batched pass (``ops/device_decode``), with
 either Rice engine (``scan``): one replay of a CUDA graph a chunk shape
 (``codec/decode_graph``), as the JAX package runs one compiled executable.
 Streams of 32 bits per sample take the wide lane of the same pass.  The
@@ -38,10 +40,11 @@ from ..models.flac_format import (
     parse_flac_metadata,
     parse_layout_block,
 )
+from ..ops.body_check import body_check
 from ..ops.device_codec import MAX_DEVICE_BPS
 from ..ops.device_decode import SCAN_ENGINES, decode_chunk
 from ..ops.gather import gather_windows
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .decoder import (
     DecodedStream,
     _comments_of,
@@ -78,6 +81,12 @@ def _host_route(buf, verify_crc, reason, sample_range, dev) -> DecodedStream:
     dec.samples = torch.from_numpy(np.ascontiguousarray(dec.samples)).to(dev)
     dec.route = f"host: {reason}"
     return dec
+
+
+def _up(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host tensor on ``dev``: from pinned memory to a card, so that the
+    copy does not synchronise the host."""
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
 
 def _upload_words(span: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -127,12 +136,18 @@ def device_route(buf: bytes, si: StreamInfo, layout, frame_start: int):
     return None, offsets
 
 
+def crc_mismatches(arr: np.ndarray, offs: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+    """Whether each frame (at byte ``offs`` of ``arr``, ``sizes`` bytes
+    long) holds a stored CRC-16 that is not its bytes' (native C)."""
+    calc = native.crc16_spans(arr, offs, sizes - 2)
+    stored = (arr[offs + sizes - 2].astype(np.uint16) << 8) | arr[offs + sizes - 1]
+    return calc != stored
+
+
 def first_crc_mismatch(arr: np.ndarray, offs: np.ndarray, sizes: np.ndarray):
     """The index of the first frame (at byte ``offs`` of ``arr``, ``sizes``
     bytes long) whose stored CRC-16 is not its bytes' (native C), or None."""
-    calc = native.crc16_spans(arr, offs, sizes - 2)
-    stored = (arr[offs + sizes - 2].astype(np.uint16) << 8) | arr[offs + sizes - 1]
-    bad = np.nonzero(calc != stored)[0]
+    bad = np.nonzero(crc_mismatches(arr, offs, sizes))[0]
     return int(bad[0]) if bad.size else None
 
 
@@ -225,11 +240,14 @@ class FrameBatch:
     decoded together on a row of devices and enqueued at construction.
 
     The streams' word-aligned bodies go up concatenated, once, from pinned
-    memory, after one native CRC-16 pass over all their frames in range,
-    with one table of every frame's offsets (:func:`chunk_schedule`'s
-    chunks, a column a chunk row).  The full frames spread over the row's
-    devices (a device may repeat) in chunks of ``chunk`` frames: the window
-    gather (K10), then ``ops/device_decode.decode_chunk`` -- on a CUDA
+    memory, with one table of every frame's offsets (:func:`chunk_schedule`'s
+    chunks, a column a chunk row).  On a card each device of the row checks
+    the CRC-16s of its full frames and swaps the body to big-endian words in one
+    kernel pass (``ops/body_check``) ahead of the chunks, and the host checks
+    the tails; on the CPU the host checks every frame in range in native C
+    first (a mismatch raises at construction) and swaps the words.  The
+    full frames spread over the row's devices (a device may repeat) in
+    chunks of ``chunk`` frames: the window gather (K10), then ``ops/device_decode.decode_chunk`` -- on a CUDA
     device one replay of the chunk shape's graph (``codec/decode_graph``),
     on the CPU its plain versions; a partial chunk padded to a power of
     two, its padded rows repeating its first frame with slot -1.  The
@@ -241,8 +259,9 @@ class FrameBatch:
     land in a buffer on its own device (the graph's ``scratch``) and are
     copied into their slots (``index_copy_``; :attr:`slot_copies` counts
     those chunks).  :meth:`put_tails` decodes the tails on the host;
-    :meth:`flagged` pulls the err flags, once a device.  ``plain_lock``,
-    where given, is held around each chunk's plain decode on the CPU: a
+    :meth:`flagged` pulls the err flags and the card's CRC-16 flags, once a
+    device, and raises a CRC-16 mismatch.  ``plain_lock``, where given, is
+    held around each chunk's plain decode on the CPU: a
     caller building batches on several threads passes one lock to them
     all (the plain versions are Python loops of small torch ops, each of
     which hands the GIL over, so threads running them at once only wait
@@ -260,6 +279,7 @@ class FrameBatch:
         out_dev = row[0]
         self.out = torch.empty((int(n_slots.sum()) * N, C), dtype=torch.int32, device=out_dev)
         self.errs: dict = {}
+        self.crc_flags: dict = {}   # device: the frames' CRC-16 flags checked there
         self.slot_copies = 0    # chunks whose samples were copied into their slots
         # every stream's frames in range, each from its word-aligned first byte
         spans = [(p["lo"], int(p["offsets"][p["f1"]])) for p in plans]
@@ -271,23 +291,33 @@ class FrameBatch:
             raw = host.numpy().view(np.uint8)
             for (lo, hi), b, blob in zip(spans, base, blobs):
                 raw[4 * b : 4 * b + hi - lo] = np.frombuffer(blob, np.uint8, hi - lo, lo)
-        if verify_crc:
-            with span("frtt.decode.crc"):
-                n_crc = np.array([p["f1"] - p["f0"] for p in plans], np.int64)
-                offs = np.concatenate([p["offsets"][p["f0"] : p["f1"]] - p["lo"] + 4 * b
-                                       for p, b in zip(plans, base)])
-                bad = first_crc_mismatch(raw, offs, np.concatenate(
-                    [p["sizes"][p["f0"] : p["f1"]] for p in plans]))
-                if bad is not None:     # report the byte in its own stream
-                    k = int(np.repeat(np.arange(len(plans)), n_crc)[bad])
-                    at = int(offs[bad] - 4 * base[k] + plans[k]["lo"])
-                    raise ValueError(f"frame CRC-16 mismatch at byte {at}")
+        # every frame in range, full frames and tails, in the body's order: its
+        # first byte in the body, its size, and that byte in its own stream
+        n_crc = np.array([p["f1"] - p["f0"] for p in plans], np.int64)
+        offs = np.concatenate([p["offsets"][p["f0"] : p["f1"]] - p["lo"] + 4 * b
+                               for p, b in zip(plans, base)])
+        sizes = np.concatenate([p["sizes"][p["f0"] : p["f1"]] for p in plans])
+        self.crc_at = offs + np.repeat([p["lo"] for p in plans] - 4 * base, n_crc)
+        self.last = np.cumsum(n_crc) - 1    # each stream's last frame (its tail, if any)
+        self.tail_bad = np.zeros(len(offs), bool)   # the host's CRC-16 failures of tails
         n_frames = int(F.sum())
+        # on a card with full frames to decode the body goes up as stored and
+        # the card checks and swaps it (ops/body_check); else the host does
+        on_card = self.checks_on_card(out_dev) and n_frames > 0
+        self.card_crc = on_card and verify_crc
+        if verify_crc and not on_card:
+            with span("frtt.decode.crc"):
+                bad = first_crc_mismatch(raw, offs, sizes)
+                if bad is not None:
+                    raise self.crc_error(bad)
         if n_frames == 0:
             return
+        chunks = chunk_schedule(n_frames, len(row), chunk)
+        bodies = (self._check_on_card(host, offs, sizes, n_crc, F, row, chunks, verify_crc)
+                  if on_card else {})
         with span("frtt.decode.tables"):
-            raw.view(np.uint32).byteswap(inplace=True)      # big-endian words
-            chunks = chunk_schedule(n_frames, len(row), chunk)
+            if not on_card:
+                raw.view(np.uint32).byteswap(inplace=True)      # big-endian words
             direct = [self.writes_slots(row[s]) for s, _, _, _ in chunks]
             # one int64 table column a chunk row (padded rows repeat the chunk's
             # first frame): word0, destination slot, bit_base, fe, sf, and the
@@ -315,11 +345,8 @@ class FrameBatch:
         with span("frtt.decode.upload"):
             for dev in row:
                 if dev not in uploads:
-                    if dev.type == "cuda":
-                        t = tab_host.pin_memory().to(dev, non_blocking=True)
-                        uploads[dev] = (host.to(dev, non_blocking=True), t, t[2:].to(torch.int32))
-                    else:
-                        uploads[dev] = (host, tab_host, tab_host[2:].to(torch.int32))
+                    t = _up(tab_host, dev)
+                    uploads[dev] = (bodies[dev] if on_card else host, t, t[2:].to(torch.int32))
         r0 = 0
         for (s, f0, B, Bp), d in zip(chunks, direct):
             dev = row[s]
@@ -330,6 +357,52 @@ class FrameBatch:
             with device_scope(dev):
                 err = self._chunk(body, word0, rows32, dst, slots, B, Bp, W, C, bps, scan)
             self.errs.setdefault(dev, []).append((f0, f0 + B, err))
+
+    def _check_on_card(self, host, offs, sizes, n_crc, F, row, chunks, verify_crc) -> dict:
+        """Upload the stored body and the frames' table to every device of
+        the row and enqueue there the frame check and byte swap
+        (``ops/body_check``); returns each device's big-endian words.  Each
+        full frame is checked once, on the device that decodes its chunk,
+        its flag waiting in :attr:`crc_flags` for :meth:`flagged`; the tails,
+        a frame a stream that the host decodes, are checked on the host
+        (:attr:`tail_bad`), so that :meth:`put_tails` never parses a
+        corrupt one."""
+        tail = np.zeros(len(offs), bool)
+        tail[self.last[n_crc > F]] = True
+        with span("frtt.decode.upload"):
+            full_idx = np.flatnonzero(~tail)
+            on = {dev: np.zeros(len(offs), np.int64) for dev in dict.fromkeys(row)}
+            if verify_crc:
+                for s, f0, B, _ in chunks:
+                    on[row[s]][full_idx[f0 : f0 + B]] = 1
+            ups = {dev: (host.to(dev, non_blocking=True),
+                         _up(torch.from_numpy(np.stack([offs, sizes, check])), dev))
+                   for dev, check in on.items()}
+        # the launch is the CRC-16's whole cost to the host: its enqueue
+        with span("frtt.decode.crc" if verify_crc else "frtt.decode.upload"):
+            if verify_crc:
+                count(frames=len(offs))
+                self.tail_bad[tail] = crc_mismatches(
+                    host.numpy().view(np.uint8), offs[tail], sizes[tail])
+            bodies = {}
+            for dev, (raw, frames) in ups.items():
+                with device_scope(dev):
+                    bodies[dev], flags = body_check(raw, frames)
+                if verify_crc:
+                    self.crc_flags[dev] = flags
+        return bodies
+
+    @staticmethod
+    def checks_on_card(dev: torch.device) -> bool:
+        """Whether a batch whose output lies on ``dev`` has its frames
+        checked and its body swapped on the row's devices
+        (``ops/body_check``) rather than on the host: on a card."""
+        return dev.type == "cuda"
+
+    def crc_error(self, bad: int) -> ValueError:
+        """The error of frame ``bad`` (in the body's order), naming its first
+        byte in its own stream."""
+        return ValueError(f"frame CRC-16 mismatch at byte {int(self.crc_at[bad])}")
 
     @staticmethod
     def window(plans) -> int:
@@ -407,8 +480,12 @@ class FrameBatch:
 
     def put_tails(self, verify_crc: bool) -> None:
         """Decode the streams' tail frames on the host and copy them into
-        their slots (one upload)."""
-        with_tail = [k for k, p in enumerate(self.plans) if p["tail"]]
+        their slots (one upload).  Where the card checks the CRC-16s, the
+        tails were checked at construction: a tail that failed is not
+        decoded (:meth:`flagged` raises its mismatch), the others decode
+        without a second check."""
+        with_tail = [k for k, p in enumerate(self.plans)
+                     if p["tail"] and not self.tail_bad[self.last[k]]]
         if not with_tail:
             return
         N, C = self.N, self.out.shape[1]
@@ -422,7 +499,7 @@ class FrameBatch:
                 full, si = p["full"], p["si"]
                 rows[i, : p["tail"]] = decode_frame_span(
                     self.blobs[k][p["offsets"][full] :], si, full, full + 1,
-                    full * N, p["tail"], verify_crc)
+                    full * N, p["tail"], verify_crc and not self.card_crc)
                 dst[i] = self.slot0[k] + p["F"]
             self.out.view(-1, N, C).index_copy_(
                 0, torch.from_numpy(dst).to(self.out.device),
@@ -430,13 +507,26 @@ class FrameBatch:
 
     def flagged(self) -> set:
         """The streams (batch indices) with a frame whose err flag is set:
-        one pull of the flags of every device."""
+        one pull of the flags of every device, the CRC-16 flags checked
+        there with them.  Raises ValueError, naming the first frame in the
+        body's order whose CRC-16 failed, on the card or (a tail) on the
+        host."""
         hit = set()
+        bad = self.tail_bad.copy()
         with span("frtt.decode.err_pull"):
-            for chunks in self.errs.values():
-                flags = torch.cat([err for _, _, err in chunks]).cpu().numpy()
-                frames = np.concatenate([np.arange(f0, f1) for f0, f1, _ in chunks])
-                hit.update(int(k) for k in np.unique(self.frame_of[frames[flags]]))
+            for dev in dict.fromkeys([*self.errs, *self.crc_flags]):
+                chunks = self.errs.get(dev, [])
+                errs = [err for _, _, err in chunks]
+                crc = [self.crc_flags[dev]] if dev in self.crc_flags else []
+                flags = torch.cat(errs + crc).cpu().numpy()
+                n_err = sum(len(err) for err in errs)
+                if crc:
+                    bad |= flags[n_err:]
+                if chunks:
+                    frames = np.concatenate([np.arange(f0, f1) for f0, f1, _ in chunks])
+                    hit.update(int(k) for k in np.unique(self.frame_of[frames[flags[:n_err]]]))
+        if bad.any():
+            raise self.crc_error(int(np.argmax(bad)))
         return hit
 
     def samples(self, k: int) -> torch.Tensor:

@@ -11,8 +11,9 @@ compressed tile streams decodes in one pass of chunks instead of one
     ``codec/device_decoder.FrameBatch``, the loop that
     ``decode_flac_device`` runs for one stream.  The rows build their
     batches at once, each on a ``frtt-row`` host thread of its own (the
-    pinned fill, the CRC-16 pass, the byteswap, the table, the uploads and
-    the chunks' enqueue; the native C calls and torch ops release the GIL),
+    pinned fill, the table, the uploads, the enqueue of the CRC-16 check and
+    byteswap and of the chunks on a card, the host's CRC-16 pass and
+    byteswap on the CPU; the native C calls and torch ops release the GIL),
     as every device of the JAX mesh runs its shard at once; the decode
     graphs they replay are captured on the calling thread first.  A
     batch's bodies go up once,
@@ -64,8 +65,9 @@ def decode_flac_batch_mesh(blobs, verify_crc: bool = True, mesh=None, scan: str 
             streaming container, the output of ``encode_flac_batch_mesh``).
             Tiles may differ in length and in (blocksize, channels, bps):
             each such class is a batch of its own.
-        verify_crc: check every frame's CRC-16 on the host (native C);
-            a mismatch raises ValueError.
+        verify_crc: check every frame's CRC-16 (on a card by a kernel
+            pass, on the CPU by the host's native C); a mismatch raises
+            ValueError.
         mesh: a ``tile_mesh`` grid (default: every CUDA device, one
             ``blocks``); groups of tiles split over its ``tiles`` axis, a
             group's frames over its ``blocks`` axis.  It may have one

@@ -1469,3 +1469,168 @@ def test_failed_decode_capture_raises(cuda, monkeypatch):
     got = decode_flac_device(blob, device=cuda)
     assert got.route == "device" and np.array_equal(got.samples.cpu().numpy(), x)
     chunk_graph.clear()
+
+
+# --- the frame check and byte swap of a decode body (ops/body_check) ------
+
+
+@pytest.fixture(scope="module")
+def band_file():
+    """chip_smoke's 10980 x 10980 band encoded by the port at level 5 on
+    the card (29 433 full frames and a tail): (raster, file)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.utils.selftest import make_raster
+
+    band = make_raster(10980)
+    conv = RasterFLACConverter(device="cuda", compute_md5=False)
+    return band, conv.encode_array(band, compression_level=5)
+
+
+def _frame_starts(blob: bytes) -> np.ndarray:
+    """Each frame's first byte and, last, the stream's end."""
+    from flac_raster_tpu_torch.models.flac_format import parse_flac_metadata, parse_layout_block
+
+    _, blocks, start = parse_flac_metadata(blob)
+    return parse_layout_block(blocks).absolute_offsets(start)
+
+
+def _stored_body(blob: bytes, cuda):
+    """A file's frames as a decode uploads them, from the word that holds
+    the first frame's first byte: (raw words, (3, F) frames, all checked)
+    on the card, and the bytes."""
+    starts = _frame_starts(blob)
+    lo = int(starts[0]) & ~3
+    body = np.frombuffer(blob, np.uint8)[lo:]
+    body = np.concatenate([body, np.zeros(-body.size % 4, np.uint8)])
+    frames = np.stack([starts[:-1] - lo, np.diff(starts), np.ones(starts.size - 1, np.int64)])
+    return (torch.from_numpy(body.view(np.int32).copy()).to(cuda),
+            torch.from_numpy(frames).to(cuda), body)
+
+
+def _with_crcs(rng, sizes, lead: int, pad: int):
+    """Random frames of ``sizes`` bytes from byte ``lead``, each ending in
+    its CRC-16, in a body ``pad`` bytes longer (then whole words)."""
+    from flac_raster_tpu_torch import native
+
+    offs = lead + np.concatenate([[0], np.cumsum(sizes)])[:-1].astype(np.int64)
+    end = int(offs[-1] + sizes[-1]) if sizes.size else lead
+    body = rng.integers(0, 256, 4 * ((end + pad + 3) // 4), dtype=np.uint8)
+    if sizes.size:
+        crc = native.crc16_spans(body, offs, sizes - 2).astype(np.int64)
+        body[offs + sizes - 2], body[offs + sizes - 1] = crc >> 8, crc & 0xFF
+    return body, offs
+
+
+def test_body_check_kernel_matches_plain_on_the_band_file(cuda, band_file):
+    """The band file's body: the kernel's words and flags equal the plain
+    version's and the host's byteswap (tolerance 0), no frame flagged; with
+    one byte flipped in every seventh frame, exactly those are flagged."""
+    from flac_raster_tpu_torch.ops import body_check
+
+    raw, frames, body = _stored_body(band_file[1], cuda)
+    assert frames.shape[1] == 29434
+    before = body_check.LAUNCHES
+    out, flags = body_check.body_check(raw, frames)
+    assert body_check.LAUNCHES == before + 1
+    ref_out, ref_flags = body_check.body_check_reference(raw, frames)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref_out) and torch.equal(flags, ref_flags) and not flags.any()
+    assert np.array_equal(out.cpu().numpy(), body.view(np.uint32).byteswap().view(np.int32))
+    offs, sizes, _ = frames.cpu().numpy()
+    bad = body.copy()
+    bad[offs[::7] + sizes[::7] // 2] ^= 0x10
+    raw_bad = torch.from_numpy(bad.view(np.int32)).to(cuda)
+    out, flags = body_check.body_check(raw_bad, frames)
+    ref_out, ref_flags = body_check.body_check_reference(raw_bad, frames)
+    want = np.zeros(sizes.size, bool)
+    want[::7] = True
+    assert torch.equal(out, ref_out) and np.array_equal(flags.cpu().numpy(), want)
+    assert torch.equal(flags, ref_flags)
+
+
+@pytest.mark.parametrize("lead,n_frames,pad", [(0, 1, 0), (1, 40, 3), (2, 300, 1), (3, 7, 2),
+                                               (1, 0, 5), (2, 64, 0)])
+def test_body_check_kernel_matches_plain_at_odd_offsets(cuda, lead, n_frames, pad):
+    """Frames from every byte of a word, of 3 bytes to 6 000 (several share
+    a 16-byte vector, several take many rounds of a warp's lanes), a third
+    of them with a wrong CRC and every other one unchecked, in bodies whose
+    last vector is partial: the kernel equals the plain version."""
+    from flac_raster_tpu_torch.ops import body_check
+
+    rng = np.random.default_rng(100 * lead + n_frames)
+    sizes = np.where(rng.random(n_frames) < 0.3, rng.integers(3, 16, n_frames),
+                     rng.integers(16, 6000, n_frames)).astype(np.int64)
+    body, offs = _with_crcs(rng, sizes, lead, pad)
+    body[(offs + sizes - 1)[rng.random(n_frames) < 0.3]] ^= 0x41
+    check = np.arange(n_frames, dtype=np.int64) % 2
+    raw = torch.from_numpy(body.view(np.int32).copy()).to(cuda)
+    frames = torch.from_numpy(np.stack([offs, sizes, check])).to(cuda)
+    out, flags = body_check.body_check(raw, frames)
+    ref_out, ref_flags = body_check.body_check_reference(raw, frames)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref_out) and torch.equal(flags, ref_flags)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        body_check.body_check(torch.zeros(9, dtype=torch.int32, device=cuda)[1:], frames[:, :0])
+
+
+def test_band_decode_takes_the_kernel(cuda, band_file):
+    """The band's decode on the card launches the check once and gives the
+    raster bit for bit."""
+    from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.ops import body_check
+
+    band, blob = band_file
+    conv = RasterFLACConverter(device="cuda")
+    before = body_check.LAUNCHES
+    data, _ = conv.decode_bytes_device(blob)
+    assert body_check.LAUNCHES == before + 1
+    want = torch.from_numpy(band[None].view(np.int16)).to(cuda)
+    assert torch.equal(data.view(torch.int16), want)
+
+
+@pytest.mark.parametrize("which", ["full", "full and tail", "tail"])
+def test_band_decode_raises_the_cpu_routes_crc_error(cuda, band_file, which):
+    """A corrupt full frame, a corrupt full frame and tail, a corrupt tail:
+    the card raises the CPU route's ValueError, text and byte (the first
+    corrupt frame's)."""
+    from flac_raster_tpu_torch import decode_flac_device
+
+    blob = band_file[1]
+    starts = _frame_starts(blob)
+    frames = {"full": [20001], "full and tail": [20001, 29433], "tail": [29433]}[which]
+    bad = bytearray(blob)
+    for f in frames:
+        bad[(starts[f] + starts[f + 1]) // 2] ^= 0x10
+    with pytest.raises(ValueError, match="CRC-16") as cpu:
+        decode_flac_device(bytes(bad), device="cpu")
+    with pytest.raises(ValueError, match="CRC-16") as card:
+        decode_flac_device(bytes(bad), device=cuda)
+    assert str(card.value) == str(cpu.value)
+    assert str(card.value) == f"frame CRC-16 mismatch at byte {starts[frames[0]]}"
+
+
+def test_mesh_decode_raises_the_lower_rows_crc_error_on_card(cuda):
+    """Four streams on a 2 x 1 grid of the card: the clean batch equals
+    the signals; corrupt frames in both rows raise the lower row's error,
+    a corrupt frame in row 2 alone its own."""
+    from flac_raster_tpu_torch.parallel import decode_flac_batch_mesh, tile_mesh
+
+    files = [_decode_blob(cuda, 70 + f, f) for f in (3, 2, 4, 2)]
+    blobs = [b for _, b in files]
+    mesh = tile_mesh(devices=[cuda, cuda], blocks_axis=1)
+    for d, (x, _) in zip(decode_flac_batch_mesh(blobs, mesh=mesh), files):
+        assert d.route == "device" and np.array_equal(d.samples.cpu().numpy(), x)
+
+    def corrupt(blob, f):
+        starts = _frame_starts(blob)
+        bad = bytearray(blob)
+        bad[(starts[f] + starts[f + 1]) // 2] ^= 0x10
+        return bytes(bad), starts[f]
+
+    (b1, at1), (b3, at3) = corrupt(blobs[1], 1), corrupt(blobs[3], 0)
+    with pytest.raises(ValueError, match=f"CRC-16 mismatch at byte {at1}$"):
+        decode_flac_batch_mesh([blobs[0], b1, blobs[2], b3], mesh=mesh)
+    with pytest.raises(ValueError, match=f"CRC-16 mismatch at byte {at3}$"):
+        decode_flac_batch_mesh([*blobs[:3], b3], mesh=mesh)
