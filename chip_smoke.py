@@ -1356,18 +1356,12 @@ def device_resident_phase(raster: np.ndarray, label: str, card: str, dev,
     """Phase 13: ``encode_array_device`` of a raster already on the card:
     timed with launch counts, bytes equal to ``encode_array`` of the host
     copy (MD5 off), and with ``compute_md5=True`` the host's MD5."""
-    import torch
-
     from flac_raster_tpu_torch import RasterFLACConverter
+    from flac_raster_tpu_torch.utils.devices import to_device
 
     conv = RasterFLACConverter(device="cuda", compute_md5=False)
     want = conv.encode_array(raster, compression_level=LEVEL)
-    signed = {2: (np.int16, torch.uint16), 4: (np.int32, torch.uint32)}
-    if raster.dtype.kind == "u":
-        np_s, t_u = signed[raster.itemsize]
-        tensor = torch.from_numpy(raster.view(np_s)).to(dev).view(t_u)
-    else:
-        tensor = torch.from_numpy(raster).to(dev)
+    tensor = to_device(raster, dev)
     conv.encode_array_device(tensor, compression_level=LEVEL)
     blob, dt, launches = run_path(
         f"the {label} device-resident encode",
@@ -2096,7 +2090,8 @@ def graph_phase(scene: np.ndarray, dev, card: str) -> None:
     from flac_raster_tpu_torch.codec.device_encoder import _frame_layout
     from flac_raster_tpu_torch.codec.encoder import EncoderConfig
     from flac_raster_tpu_torch.ops import device_emit
-    from flac_raster_tpu_torch.utils.selftest import card_rows, check_chunk_graph
+    from flac_raster_tpu_torch.utils.devices import to_device
+    from flac_raster_tpu_torch.utils.selftest import check_chunk_graph
 
     N, F = 4096, CHUNK_FRAMES
     frames = scene.reshape(-1, N, 1)
@@ -2119,7 +2114,7 @@ def graph_phase(scene: np.ndarray, dev, card: str) -> None:
     for label, rows, numbers, layout in cases:
         graph = check_chunk_graph(rows, numbers, layout, 1 << 15, dev,
                                   frames=min(1 << (len(rows) - 1).bit_length(), F))
-        x = card_rows(rows, dev).permute(0, 2, 1)
+        x = to_device(np.ascontiguousarray(rows), dev).permute(0, 2, 1)
         nums = torch.from_numpy(numbers).to(dev)
         eager_ms, eager_host = events_and_host_ms(
             lambda: device_emit.plan_and_emit(x, nums, n_words=graph.n_words, zero_point=1 << 15,

@@ -515,7 +515,7 @@ def _normalize_argv(argv: list[str]) -> list[str]:
 
 
 def main(argv=None) -> int:
-    from .codec.device_encoder import resolve_device
+    from .utils.devices import resolve_device
 
     if argv is None:
         argv = sys.argv[1:]

@@ -58,10 +58,10 @@ import numpy as np
 import torch
 
 from ..ops import device_emit, gather, pack, restore, rice_cost, rice_group, rice_scan, subframe
+from ..utils.devices import SIGNED_VIEWS
 
 __all__ = ["CapturedGraph", "ChunkGraph", "chunk_graph", "cached", "clear", "emit_chunk",
-           "split_head", "launch_counts", "CACHE_SIZE", "CACHE_BYTES", "CAPTURES",
-           "SIGNED_VIEWS"]
+           "split_head", "launch_counts", "CACHE_SIZE", "CACHE_BYTES", "CAPTURES"]
 
 # graphs kept a card across calls, encode and decode together: one layout's
 # padded shapes are 2048, 1024, ..., 1 frames, and rasters of mixed sizes
@@ -75,9 +75,6 @@ CAPTURES: list[dict] = []   # one entry per capture since import
 _CACHE: OrderedDict = OrderedDict()
 _CACHE_LOCK = threading.Lock()
 _COUNTS_LOCK = threading.Lock()
-# tensors whose values travel (and sit in a graph's static input) as the
-# signed type of their width, so that no copy kernel needs the unsigned type
-SIGNED_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 
 
 def emit_chunk(x: torch.Tensor, frame_numbers: torch.Tensor, n_words: int, zero_point: int,
@@ -193,7 +190,7 @@ class ChunkGraph(CapturedGraph):
     """One captured ``emit_chunk`` for a chunk shape on one card.
 
     Inside :meth:`use`, copy a chunk's (F, N, C) samples into ``x`` (of
-    ``dtype``'s signed view, ``SIGNED_VIEWS``) and its frame numbers into
+    ``dtype``'s signed view, ``utils.devices.SIGNED_VIEWS``) and its frame numbers into
     ``numbers`` on the current stream, :meth:`replay`, and enqueue the
     copies of ``words`` and ``head``, which hold its outputs until the next
     replay.

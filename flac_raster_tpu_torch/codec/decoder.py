@@ -42,7 +42,7 @@ from ..ops.lpc import lpc_restore_batch
 from ..utils.profiling import span
 
 __all__ = ["decode_flac", "decode_flac_range", "decode_frame_span", "covering_frames",
-           "DecodedStream", "md5_of_samples", "md5_of_pcm_stream", "md5_route", "pcm_width"]
+           "DecodedStream", "md5_of_pcm_stream", "md5_route", "pcm_width"]
 
 # the most bytes an array of the streaming MD5 holds: a slice's PCM, or its
 # int64 difference on the "convert" route
@@ -310,7 +310,7 @@ def decode_flac(
     else:
         out = _walk_frames(arr, frame_start, streaminfo, verify_crc)
     if verify_md5 and streaminfo.md5 != b"\x00" * 16:
-        if md5_of_samples(out, streaminfo.bits_per_sample) != streaminfo.md5:
+        if md5_of_pcm_stream(out, streaminfo.bits_per_sample) != streaminfo.md5:
             raise ValueError("decoded audio MD5 mismatch")
     return DecodedStream(out, streaminfo, comments, vendor)
 
@@ -396,24 +396,6 @@ def decode_frame_span(span: bytes, si: StreamInfo, f0: int, f1: int, start_sampl
     return samples[lo : lo + num_samples]
 
 
-def md5_of_samples(samples: np.ndarray, bits_per_sample: int) -> bytes:
-    """MD5 of the interleaved little-endian PCM, as libFLAC computes it for
-    STREAMINFO.  Sample width is the byte-padded bit depth."""
-    s = np.ascontiguousarray(samples)
-    if bits_per_sample <= 8:
-        raw = s.astype("<i1").tobytes()
-    elif bits_per_sample <= 16:
-        raw = s.astype("<i2").tobytes()
-    elif bits_per_sample <= 24:
-        le32 = s.astype("<i4")
-        b = le32.view(np.uint8).reshape(-1, 4)[:, :3]
-        raw = np.ascontiguousarray(b).tobytes()
-    else:
-        raw = s.astype("<i4").tobytes()
-    with span("frtt.md5.hash"):
-        return hashlib.md5(raw).digest()
-
-
 def pcm_width(bits_per_sample: int) -> int:
     """Bytes a sample of the MD5's PCM: the byte-padded bit depth."""
     return (bits_per_sample + 7) // 8
@@ -443,9 +425,11 @@ def md5_route(dtype, bits_per_sample: int, zero_point: int) -> str:
 
 def md5_of_pcm_stream(samples: np.ndarray, bits_per_sample: int, zero_point: int = 0,
                       stop: threading.Event | None = None) -> bytes | None:
-    """``md5_of_samples(samples.astype(np.int64) - zero_point,
-    bits_per_sample)`` of (n,) or (n, C) integer samples, hashed a slice
-    of rows at a time (each update a ``frtt.md5.hash`` span): no array it
+    """STREAMINFO's MD5 of (n,) or (n, C) integer samples less
+    ``zero_point``: the MD5 of their interleaved little-endian PCM, each
+    sample as wide as the byte-padded bit depth, as libFLAC computes it.
+    The port's one producer of STREAMINFO MD5 bytes.  It hashes a slice of
+    rows at a time (each update a ``frtt.md5.hash`` span): no array it
     makes holds more than ``MD5_SLICE_BYTES`` (or one row), whatever n.
     The route (``md5_route``) follows the dtype, the bit depth and the zero
     point.  Returns None, part hashed, once ``stop`` is set: it is read

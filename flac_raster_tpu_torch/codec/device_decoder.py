@@ -44,6 +44,7 @@ from ..ops.body_check import body_check
 from ..ops.device_codec import MAX_DEVICE_BPS
 from ..ops.device_decode import SCAN_ENGINES, decode_chunk
 from ..ops.gather import gather_windows
+from ..utils.devices import device_scope, indexed, resolve_device, to_device, to_host
 from ..utils.profiling import count, span
 from .decoder import (
     DecodedStream,
@@ -51,10 +52,9 @@ from .decoder import (
     decode_flac,
     decode_flac_range,
     decode_frame_span,
-    md5_of_samples,
+    md5_of_pcm_stream,
 )
 from .decode_graph import decode_graph
-from .device_encoder import _indexed, device_scope, resolve_device
 from .encoder import _blocksize_header
 
 logger = logging.getLogger("flac_raster_tpu_torch.device_decoder")
@@ -81,12 +81,6 @@ def _host_route(buf, verify_crc, reason, sample_range, dev) -> DecodedStream:
     dec.samples = torch.from_numpy(np.ascontiguousarray(dec.samples)).to(dev)
     dec.route = f"host: {reason}"
     return dec
-
-
-def _up(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
-    """A host tensor on ``dev``: from pinned memory to a card, so that the
-    copy does not synchronise the host."""
-    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
 
 def _upload_words(span: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -345,7 +339,7 @@ class FrameBatch:
         with span("frtt.decode.upload"):
             for dev in row:
                 if dev not in uploads:
-                    t = _up(tab_host, dev)
+                    t = to_device(tab_host, dev, pinned=True)
                     uploads[dev] = (bodies[dev] if on_card else host, t, t[2:].to(torch.int32))
         r0 = 0
         for (s, f0, B, Bp), d in zip(chunks, direct):
@@ -376,7 +370,7 @@ class FrameBatch:
                 for s, f0, B, _ in chunks:
                     on[row[s]][full_idx[f0 : f0 + B]] = 1
             ups = {dev: (host.to(dev, non_blocking=True),
-                         _up(torch.from_numpy(np.stack([offs, sizes, check])), dev))
+                         to_device(np.stack([offs, sizes, check]), dev, pinned=True))
                    for dev, check in on.items()}
         # the launch is the CRC-16's whole cost to the host: its enqueue
         with span("frtt.decode.crc" if verify_crc else "frtt.decode.upload"):
@@ -423,7 +417,7 @@ class FrameBatch:
             return
         W = FrameBatch.window(plans)
         for s, _, _, Bp in chunk_schedule(n_frames, len(row), chunk):
-            dev = _indexed(torch.device(row[s]))
+            dev = indexed(torch.device(row[s]))
             if dev.type == "cuda":
                 with device_scope(dev), span("frtt.decode.capture"):
                     decode_graph(dev, Bp, W, C, bps, N, scan)
@@ -433,7 +427,7 @@ class FrameBatch:
         straight into the output's slots: where the output lies on ``dev``
         (a card named without its index is the current one, as its
         tensors are)."""
-        return _indexed(dev) == self.out.device
+        return indexed(dev) == self.out.device
 
     def _chunk(self, body, word0, rows32, dst, slots, B: int, Bp: int, W: int, C: int,
                bps: int, scan: str) -> torch.Tensor:
@@ -551,15 +545,11 @@ def prepare_frames(buf: bytes, frame_start: int, layout, si: StreamInfo, f0: int
     if tables is None:
         return None
 
-    def up(a):
-        # from pinned memory, so that the copy does not synchronise the host
-        t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
-        return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
-
     with span("frtt.decode.upload"):
         body = _upload_words(arr[byte_lo : int(offsets[f1])], dev)
         return {"body": body, "W": window_words(int(sizes.max())),
-                **{k: up(v) for k, v in tables.items()}}
+                **{k: to_device(np.ascontiguousarray(v, np.int64), dev, pinned=True)
+                   for k, v in tables.items()}}
 
 
 def decode_flac_device(
@@ -620,6 +610,6 @@ def decode_flac_device(
     samples_dev = batch.samples(0)
     if verify_md5 and si.md5 != b"\x00" * 16:
         with span("frtt.decode.md5"):
-            if md5_of_samples(samples_dev.cpu().numpy(), bps) != si.md5:
+            if md5_of_pcm_stream(to_host(samples_dev), bps) != si.md5:
                 raise ValueError("decoded audio MD5 mismatch")
     return DecodedStream(samples_dev, si, comments, vendor, route="device")

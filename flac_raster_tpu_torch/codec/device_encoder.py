@@ -41,12 +41,12 @@ the same loop runs each chunk eagerly, unpadded.
 
 The STREAMINFO MD5 of ``encode_flac_device`` is hashed on a ``frtt-md5``
 worker while the chunk loop runs, a slice of the samples' own PCM at a time
-(``decoder.md5_of_pcm_stream``), and joined before the header is written.
+(``decoder.md5_of_pcm_stream``), and joined before the header is written;
+a batch's tiles stream theirs on the caller's thread after the loop.
 """
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -58,10 +58,18 @@ from .. import native
 from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_header
 from ..ops.device_emit import worst_case_words
 from ..ops.stereo import CHAN_CODES, midside_ok
+from ..utils.devices import (
+    as_int64,
+    device_scope,
+    indexed,
+    np_dtype,
+    resolve_device,
+    to_host,
+    torch_dtype,
+)
 from ..utils.profiling import carry, count, span
 from . import chunk_graph, host_encoder
-from .chunk_graph import SIGNED_VIEWS
-from .decoder import md5_of_pcm_stream, md5_of_samples, md5_route, pcm_width
+from .decoder import md5_of_pcm_stream, md5_route, pcm_width
 from .encoder import (
     _BPS_CODES,
     _SAMPLE_RATE_CODES,
@@ -71,7 +79,7 @@ from .encoder import (
 )
 
 __all__ = ["encode_flac_device", "encode_flac_batch_device", "encode_batch_shards",
-           "device_blocksize", "resolve_device", "device_scope", "np_dtype", "to_host", "as_int64"]
+           "device_blocksize"]
 
 logger = logging.getLogger("flac_raster_tpu_torch.device_encoder")
 
@@ -84,63 +92,6 @@ PLAN_CHUNK_FRAMES = 2048   # frames a chunk of the encoder's loop, by default
 # reuses the slot of chunk i - DRAIN_SLOTS, whose drain must have ended
 DRAIN_THREADS = 1
 DRAIN_SLOTS = DRAIN_THREADS + 1
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; raises when CUDA is asked for and
-    absent (the plain PyTorch versions run only with ``device="cpu"``)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the plain "
-                "PyTorch versions of the kernels"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
-
-
-def device_scope(dev: torch.device):
-    """A context in which ``dev`` is the current CUDA device: the kernels'
-    wrappers launch on the current device (a no-op for the CPU)."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-
-
-def np_dtype(t: torch.Tensor) -> np.dtype:
-    """The numpy dtype of a tensor's elements."""
-    return np.dtype(str(t.dtype).removeprefix("torch."))
-
-
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor's values as a numpy array of the same dtype (uint16 and
-    uint32 through their signed views, which every PyTorch build copies)."""
-    signed = SIGNED_VIEWS.get(t.dtype)
-    if signed is None:
-        return t.cpu().numpy()
-    return t.view(signed).cpu().numpy().view(np_dtype(t))
-
-
-def as_int64(t: torch.Tensor) -> torch.Tensor:
-    """A tensor's integer values as int64 (unsigned types through their
-    signed views)."""
-    signed = SIGNED_VIEWS.get(t.dtype)
-    if signed is None:
-        return t.long()
-    return t.view(signed).long() & ((1 << (8 * t.element_size())) - 1)
-
-
-def _indexed(dev: torch.device) -> torch.device:
-    """A card named without its index as the current one (its tensors'
-    device)."""
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def _torch_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a numpy integer dtype."""
-    return getattr(torch, np.dtype(dtype).name)
 
 
 def _patch_crcs(buf: np.ndarray, frame_bits: np.ndarray, hdr_bits: np.ndarray) -> None:
@@ -435,7 +386,7 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
     frame_numbers = np.asarray(frame_numbers, np.int64)
     numbers = torch.from_numpy(frame_numbers).to(dev)
     bounds = _bounds(len(frame_numbers), chunk)
-    dev = _indexed(dev)
+    dev = indexed(dev)
     tail_bits = layout["bs_tail_bits"]
     drains = []
     with (device_scope(dev),
@@ -594,7 +545,7 @@ def encode_flac_device(
             frames, sizes, subs = _emit_full_frames(
                 frames_of, np.arange(n_full), channels, layout, zero_point,
                 max(1, int(plan_chunk_frames)), dev,
-                samples.dtype if on_device else _torch_dtype(dtype))
+                samples.dtype if on_device else torch_dtype(dtype))
             tail = None
             if n_full * blocksize < n:
                 tail = samples[n_full * blocksize :]
@@ -737,7 +688,7 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
     full = samples_batch[:, : n_full * blocksize].reshape(T, n_full, blocksize, channels)
     layout = _frame_layout(blocksize, bits_per_sample, sample_rate, channels, cfg)
     chunk = max(1, int(plan_chunk_frames))
-    dtype = _torch_dtype(samples_batch.dtype)
+    dtype = torch_dtype(samples_batch.dtype)
 
     def cell(dev, tiles, frames):
         numbers = np.tile(np.arange(frames.start, frames.stop), tiles.stop - tiles.start)
@@ -751,7 +702,7 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
         done = [cell(*shards[0])]
     else:
         # a card named without its index is the caller's current one
-        shards = [(_indexed(torch.device(dev)), tiles, frames) for dev, tiles, frames in shards]
+        shards = [(indexed(torch.device(dev)), tiles, frames) for dev, tiles, frames in shards]
         for dev, tiles, frames in shards:
             if dev.type == "cuda":
                 _graphs(dev, (tiles.stop - tiles.start) * (frames.stop - frames.start), chunk,
@@ -779,8 +730,7 @@ def encode_batch_shards(samples_batch: np.ndarray, sample_rate: int, bits_per_sa
         md5 = b"\x00" * 16
         if compute_md5:
             with span("frtt.tile_md5"):
-                md5 = md5_of_samples(samples_batch[t].astype(np.int64) - zero_point,
-                                     bits_per_sample)
+                md5 = md5_of_pcm_stream(samples_batch[t], bits_per_sample, zero_point)
         with span("frtt.tile_header"):
             out.append(_assemble_stream(
                 b"".join(frames_t), np.concatenate(sizes_t), np.concatenate(subs_t), tail, n,

@@ -21,7 +21,7 @@ from .. import native
 from ..models.flac_format import LAYOUT_FLAG_TOK32, StreamInfo, build_flac_header
 from ..ops.device_codec import MAX_RICE_TOKEN_BITS, apodization_window
 from ..ops.stereo import midside_ok
-from .decoder import md5_of_samples
+from .decoder import md5_of_pcm_stream
 from .encoder import _BLOCKSIZE_CODES, EncoderConfig
 
 __all__ = ["emit_tail_frame", "encode_flac"]
@@ -436,8 +436,7 @@ def encode_flac(samples: np.ndarray, sample_rate: int, bits_per_sample: int,
         sub_rows.append(sub_bits)
         max_tok = max(max_tok, tok)
     sizes = [len(f) for f in frames]
-    md5 = (md5_of_samples(samples.astype(np.int32), bits_per_sample)
-           if compute_md5 else b"\x00" * 16)
+    md5 = md5_of_pcm_stream(samples, bits_per_sample) if compute_md5 else b"\x00" * 16
     streaminfo = StreamInfo(
         min_blocksize=blocksize, max_blocksize=blocksize,
         min_framesize=min(sizes, default=0), max_framesize=max(sizes, default=0),

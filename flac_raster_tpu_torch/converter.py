@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import json
 import logging
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,17 +44,9 @@ from .codec.decoder import (
     decode_flac,
     decode_flac_range,
     decode_frame_span,
-    md5_of_samples,
 )
 from .codec.device_decoder import decode_flac_device
-from .codec.chunk_graph import SIGNED_VIEWS
-from .codec.device_encoder import (
-    as_int64,
-    encode_flac_device,
-    np_dtype,
-    resolve_device,
-    to_host,
-)
+from .codec.device_encoder import encode_flac_device
 from .io.geo import Affine
 from .parallel import mesh as device_mesh
 from .parallel.tile_engine import encode_flac_batch_mesh
@@ -75,16 +66,12 @@ from .ops.normalization import (
     normalize_lossless,
     normalize_to_audio,
 )
-from .utils.profiling import StageTimer, carry, request_method, span
+from .utils.devices import as_int64, np_dtype, resolve_device, signed_view, to_host
+from .utils.profiling import StageTimer, request_method, span
 
 logger = logging.getLogger("flac_raster_tpu_torch.converter")
 
 __all__ = ["RasterFLACConverter"]
-
-# STREAMINFO's MD5 field: "fLaC", the 4-byte block header and 18 bytes of
-# stream parameters come first
-_MD5_FIELD = slice(26, 42)
-
 
 def _interleave(data: np.ndarray) -> np.ndarray:
     """(bands, h, w) -> (h*w, bands) sample rows (the JAX package's layout)."""
@@ -352,9 +339,9 @@ class RasterFLACConverter:
         ``encode_array``'s path on the pulled array.
 
         The bytes equal ``encode_array`` on the pulled array but for the
-        MD5 field, which stays unset unless ``compute_md5``: the MD5 is then
-        taken from the PCM pulled on a worker thread while the encode runs,
-        and a failure there raises here.
+        MD5 field, which stays unset unless ``compute_md5``: the encoder's
+        own MD5 worker then hashes the pulled PCM while the encode runs, and
+        a failure there raises here.
         """
         if not isinstance(data, torch.Tensor):
             raise TypeError(f"data must be a torch.Tensor, not {type(data).__name__}")
@@ -398,24 +385,18 @@ class RasterFLACConverter:
             data_min=stats[0], data_max=stats[1], original_dtype=str(dt),
             bits_per_sample=bps, scale_factor=1, mode=mode, zero_point=zero,
         )
-        signed = SIGNED_VIEWS.get(data.dtype)
         with timer.stage("device_interleave", nbytes):   # the timer syncs the device
-            rows = (data if signed is None else data.view(signed)).permute(1, 2, 0)
-            rows = rows.reshape(height * width, count)
-            if signed is not None:
-                rows = rows.view(data.dtype)
+            rows = signed_view(data).permute(1, 2, 0).reshape(height * width, count)
+            rows = rows.view(data.dtype)
         comments = self._comments(count, params, count, height, width, dt, crs, transform,
                                   bounds, nodata, extra_comments)
         sample_rate, _ = calculate_audio_params(data, dt)
-        with (timer.stage("encode", nbytes),
-              ThreadPoolExecutor(max_workers=1, thread_name_prefix="frtt-md5") as pool):
-            md5 = pool.submit(carry(_md5_of_rows), rows, zero, bps) if compute_md5 else None
+        with timer.stage("encode", nbytes):
             blob = encode_flac_device(
                 rows, sample_rate, bps, compression_level=compression_level,
-                comments=comments, compute_md5=False, zero_point=zero, device=self.device,
+                comments=comments, compute_md5=compute_md5, zero_point=zero,
+                device=self.device,
             )
-            if md5 is not None:
-                blob = blob[: _MD5_FIELD.start] + md5.result() + blob[_MD5_FIELD.stop :]
         timer.report(logging.DEBUG)
         return blob
 
@@ -597,9 +578,3 @@ class RasterFLACConverter:
         dec = DecodedStream(decode_frame_span(span, si, f0, f1, start_sample, num_samples,
                                               verify_crc=True), si, {})
         return _band_major(self._denormalize_samples(dec, meta), width, n_rows), meta, fetched
-
-
-def _md5_of_rows(rows: torch.Tensor, zero: int, bps: int) -> bytes:
-    """STREAMINFO's MD5 of device rows minus their zero point (worker thread)."""
-    with span("frtt.md5"):
-        return md5_of_samples(to_host(rows).astype(np.int64) - zero, bps)

@@ -32,12 +32,12 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..codec.device_encoder import device_scope, resolve_device
 from ..io.geo import Affine, Window
 from ..io.geotiff import open_geotiff
 from ..io.remote import RemoteFile, _shared_executor, is_remote_url
 from ..parallel import decode_flac_batch_mesh
 from ..parallel import mesh as device_mesh
+from ..utils.devices import device_scope, resolve_device, to_device
 from ..utils.profiling import carry, request_method
 from .flac_format import (
     BLOCK_VORBIS_COMMENT,
@@ -298,25 +298,6 @@ class SpatialFLACEncoder:
         raise RuntimeError("spatial index size failed to stabilize")
 
 
-def _to_device(data: np.ndarray, dev: torch.device, pinned: bool = False):
-    """A host raster on ``dev`` (uint16/uint32 through their signed views,
-    which every PyTorch build copies).  With ``pinned``, the copy runs from
-    pinned memory without blocking the host; returns (tensor, the pinned
-    source or None)."""
-    signed = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}.get(data.dtype)
-    host = torch.from_numpy(data if signed is None else data.view(signed))
-    src = None
-    if dev.type == "cuda" and pinned:
-        src = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        src.copy_(host)
-        out = src.to(dev, non_blocking=True)
-    else:
-        out = host.to(dev)
-    if signed is not None:
-        out = out.view(torch.uint16 if signed is np.int16 else torch.uint32)
-    return out, src
-
-
 class SpatialFLACStreamer:
     """Range-request client for spatial FLAC files (local path or a URL).
 
@@ -459,25 +440,21 @@ class SpatialFLACStreamer:
 
         def prepare(f: SpatialFrame, blob: bytes):
             data, _ = conv.decode_bytes(blob, override_dims=(f.window.width, f.window.height))
-            tile, src = _to_device(data, dev, pinned=True)
-            done = None
-            if src is not None:
+            tile, done = to_device(data, dev, pinned=True), None
+            if dev.type == "cuda":
                 done = torch.cuda.Event()
                 done.record()
-            return f, tile, src, done
+            return f, tile, done
 
         pool = _shared_executor()
         nxt = pool.submit(carry(prepare), frames[0], blobs[0]) if frames else None
         for i in range(len(frames)):
-            f, tile, src, done = nxt.result()
+            f, tile, done = nxt.result()
             if i + 1 < len(frames):
                 nxt = pool.submit(carry(prepare), frames[i + 1], blobs[i + 1])
             if done is not None:
                 torch.cuda.current_stream(dev).wait_event(done)
             yield f, tile
-            if done is not None:
-                done.synchronize()   # the pinned source outlives its copy
-            del src
 
     def _read_ranges(self, ranges: List[Tuple[int, int]]) -> List[bytes]:
         """Fetch inclusive byte ranges: all at once from a URL, positioned

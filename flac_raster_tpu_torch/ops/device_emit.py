@@ -48,6 +48,7 @@ from .device_codec import (
 from .pack import pack_tokens
 from .stereo import CHAN_CODES, SLOT0_VARIANT, SLOT1_VARIANT
 from .wide_codec import plan_blocks_wide
+from ..utils.devices import SIGNED_VIEWS
 from ..utils.profiling import span
 
 __all__ = [
@@ -80,12 +81,13 @@ def normalize(x: torch.Tensor, zero_point: int) -> torch.Tensor:
     The subtraction wraps in uint32, so the uint32 zero point (2^31) is
     exact; for narrower dtypes it equals plain int32 subtraction.
     """
-    if x.dtype == torch.uint16:
-        x = x.view(torch.int16).to(torch.int32) & 0xFFFF
-    elif x.dtype == torch.uint32:
-        x = x.view(torch.int32)
-    else:
+    signed = SIGNED_VIEWS.get(x.dtype)
+    if signed is None:
         x = x.to(torch.int32)
+    elif signed == torch.int16:
+        x = x.view(signed).to(torch.int32) & 0xFFFF
+    else:
+        x = x.view(signed)
     if zero_point:
         x = ((x.long() - (zero_point & 0xFFFFFFFF)) & 0xFFFFFFFF).to(torch.int32)
     return x

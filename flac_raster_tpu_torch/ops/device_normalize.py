@@ -38,22 +38,13 @@ from .normalization import (
     MODE_FLOAT64_BITS,
     MODE_MINMAX,
     MODE_SHIFT,
+    _SHIFT_SPECS,
     NormalizationParams,
     minmax_scale,
 )
+from ..utils.devices import SIGNED_VIEWS, torch_dtype
 
 __all__ = ["denormalize_device"]
-
-# raster dtype -> (signed torch type of the same width, view type)
-_SHIFT_TYPES = {
-    np.dtype(np.uint8): (torch.int8, torch.uint8),
-    np.dtype(np.int8): (torch.int8, torch.int8),
-    np.dtype(np.uint16): (torch.int16, torch.uint16),
-    np.dtype(np.int16): (torch.int16, torch.int16),
-    np.dtype(np.uint32): (torch.int32, torch.uint32),
-    np.dtype(np.int32): (torch.int32, torch.int32),
-}
-
 
 def _fold(bits: torch.Tensor, flip: int) -> torch.Tensor:
     """The float bit fold on signed bit patterns: negative ones flip
@@ -62,12 +53,10 @@ def _fold(bits: torch.Tensor, flip: int) -> torch.Tensor:
 
 
 def _cast(x: torch.Tensor, dt: np.dtype) -> torch.Tensor:
-    """int64 or float64 values that fit ``dt`` -> a tensor of ``dt``; the
-    unsigned types narrow through the signed type of their width."""
-    if dt in _SHIFT_TYPES:
-        signed, view = _SHIFT_TYPES[dt]
-        return x.to(signed).view(view)
-    return x.to(getattr(torch, dt.name))
+    """Values that fit ``dt`` -> a tensor of ``dt``; uint16 and uint32
+    narrow through their signed views."""
+    view = torch_dtype(dt)
+    return x.to(SIGNED_VIEWS.get(view, view)).view(view)
 
 
 def _denormalize_minmax(samples: torch.Tensor, params: NormalizationParams,
@@ -102,12 +91,11 @@ def denormalize_device(samples: torch.Tensor, params: NormalizationParams, *,
     dt = np.dtype(params.original_dtype)
     if params.mode == MODE_MINMAX:
         return _denormalize_minmax(samples, params, bits_per_sample, soundfile_compat)
-    if params.mode == MODE_SHIFT and dt in _SHIFT_TYPES:
-        signed, view = _SHIFT_TYPES[dt]
+    if params.mode == MODE_SHIFT and dt in _SHIFT_SPECS:
         # int32 addition wraps, so uint32's zero point 2^31 enters as its
         # int32 pattern; the narrow sums fit their dtype by construction
         zp = ((int(params.zero_point) + (1 << 31)) & M32) - (1 << 31)
-        return (samples + zp).to(signed).view(view)
+        return _cast(samples + zp, dt)
     if params.mode == MODE_FLOAT32_BITS:
         return _fold(samples, (1 << 31) - 1).view(torch.float32)
     if params.mode == MODE_FLOAT64_BITS:

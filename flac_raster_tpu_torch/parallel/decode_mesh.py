@@ -46,9 +46,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 from ..codec.decoder import DecodedStream, _comments_of
 from ..codec.device_decoder import FrameBatch, decode_flac_device, stream_plan
-from ..codec.device_encoder import _indexed, device_scope
 from ..models.flac_format import parse_flac_metadata, parse_layout_block
 from ..ops.device_decode import SCAN_ENGINES
+from ..utils.devices import device_scope, indexed
 from ..utils.profiling import carry, span
 from .mesh import host_tile_slice, tile_mesh
 
@@ -113,7 +113,7 @@ def decode_flac_batch_mesh(blobs, verify_crc: bool = True, mesh=None, scan: str 
         jobs = [(tiles, N, C, bps) for (N, C, bps), members in classes.items()
                 if (tiles := members[host_tile_slice(len(members), g, tiles_axis)])]
         if jobs:
-            rows.append(([_indexed(d) for d in mesh.devices[g]], jobs))
+            rows.append(([indexed(d) for d in mesh.devices[g]], jobs))
 
     # rows on the CPU take turns at their plain chunk decodes
     plain_lock = threading.Lock() if len(rows) > 1 else None

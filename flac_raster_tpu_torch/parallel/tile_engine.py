@@ -35,13 +35,13 @@ import torch
 from ..codec.device_encoder import (
     PLAN_CHUNK_FRAMES,
     device_blocksize,
-    device_scope,
     encode_batch_shards,
     encode_flac_batch_device,
 )
 from ..codec.encoder import EncoderConfig
 from ..ops.device_codec import plan_blocks
 from ..ops.device_emit import _UTF8_THRESH
+from ..utils.devices import device_scope
 from .mesh import host_tile_slice, tile_mesh
 
 logger = logging.getLogger("flac_raster_tpu_torch.tile_engine")

@@ -38,10 +38,11 @@ import numpy as np
 import torch
 
 from ..ops.device_decode import SCAN_KEYS
+from .devices import resolve_device, to_device
 
 __all__ = ["main", "make_raster", "make_dem", "make_minmax_dem", "make_stereo",
            "check_kernels", "check_plan", "check_encode", "check_decode", "check_chunk_graph",
-           "check_subframe", "chunk_table", "with_hostile_frames", "padded_chunk", "card_rows"]
+           "check_subframe", "chunk_table", "with_hostile_frames", "padded_chunk"]
 
 M32 = 0xFFFFFFFF
 SIZE_ENVELOPE = 1.0025
@@ -129,8 +130,7 @@ def level5_chunk(scene: np.ndarray, F: int, dev) -> torch.Tensor:
     int32 samples on ``dev``, zero point 32768 subtracted."""
     from ..ops import device_emit as de
 
-    rows = torch.from_numpy(scene.reshape(-1)[: F * N].view(np.int16)).to(dev)
-    return de.normalize(rows.view(torch.uint16).reshape(F, 1, N), 1 << 15)
+    return de.normalize(to_device(scene.reshape(-1)[: F * N], dev).reshape(F, 1, N), 1 << 15)
 
 
 def rice_cost_input(blocks: torch.Tensor) -> torch.Tensor:
@@ -192,8 +192,7 @@ def midside_tokens(stereo: np.ndarray, F: int, dev):
 
     cfg = EncoderConfig.from_level(8)
     lr = np.ascontiguousarray(stereo.reshape(2, -1)[:, : F * N])
-    xs = de.normalize(torch.from_numpy(lr.view(np.int16)).to(dev).view(torch.uint16)
-                      .reshape(2, F, N).permute(1, 0, 2), 1 << 15)
+    xs = de.normalize(to_device(lr, dev).reshape(2, F, N).permute(1, 0, 2), 1 << 15)
     plan, xs, codes, ch_bps = de._plan_mid_side(
         xs, 16, blocksize=N, max_lpc_order=cfg.max_lpc_order, max_partition_order=6,
         use_lpc=True, apodizations=cfg.apodizations)
@@ -497,18 +496,6 @@ KERNELS = ("rice_cost_sums", "pack_tokens", "pack_tokens_v2", "pack_tokens_v3",
            "rice_group_step", "restore", "subframe_parse", "subframe_finish")
 
 
-def card_rows(rows: np.ndarray, dev) -> torch.Tensor:
-    """Host integer rows as a tensor of their dtype on ``dev`` (unsigned
-    types through their signed views, ``chunk_graph.SIGNED_VIEWS``)."""
-    from ..codec.chunk_graph import SIGNED_VIEWS
-
-    rows = np.ascontiguousarray(rows)
-    dtype = getattr(torch, rows.dtype.name)
-    if dtype not in SIGNED_VIEWS:
-        return torch.from_numpy(rows).to(dev)
-    return torch.from_numpy(rows.view(f"i{rows.itemsize}")).to(dev).view(dtype)
-
-
 def check_chunk_graph(rows: np.ndarray, numbers: np.ndarray, layout: dict, zero_point: int,
                       dev, replays: int = 3, frames: int | None = None):
     """A chunk's CUDA graph (``codec/chunk_graph``) against an eager
@@ -525,7 +512,7 @@ def check_chunk_graph(rows: np.ndarray, numbers: np.ndarray, layout: dict, zero_
 
     F, _, C = rows.shape
     frames = frames or F
-    x = card_rows(rows, dev)
+    x = to_device(np.ascontiguousarray(rows), dev)
     nums = torch.from_numpy(np.asarray(numbers, np.int64)).to(dev)
     bps = layout["bps"] + layout["mid_side"]
     want = device_emit.plan_and_emit(x.permute(0, 2, 1), nums,
@@ -726,8 +713,6 @@ def check_decode(dev, size: int = 96) -> list[str]:
 
 
 def main(argv=None) -> int:
-    from ..codec.device_encoder import resolve_device
-
     p = argparse.ArgumentParser(prog="python -m flac_raster_tpu_torch.utils.selftest",
                                 description="Selftest of the port's kernels and paths")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from flac_raster_tpu_torch import RasterFLACConverter, converter
+from flac_raster_tpu_torch import RasterFLACConverter
 from flac_raster_tpu_torch.codec import device_encoder
 
 _MD5 = slice(26, 42)
@@ -91,7 +91,7 @@ def test_failing_md5_worker_raises_in_the_caller(monkeypatch):
     def broken(*_):
         raise OSError("the PCM pull failed")
 
-    monkeypatch.setattr(converter, "md5_of_samples", broken)
+    monkeypatch.setattr(device_encoder, "md5_of_pcm_stream", broken)
     conv = RasterFLACConverter(device="cpu")
     data = _raster(np.uint16, 1)
     with pytest.raises(OSError, match="PCM pull failed"):

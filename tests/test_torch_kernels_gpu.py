@@ -726,9 +726,9 @@ def test_pack_v5_unaligned_fields_and_buffer(cuda):
 def _card_tensor(data, cuda):
     """A host raster as a tensor of its dtype on the card (unsigned
     types through their signed views)."""
-    from flac_raster_tpu_torch.utils.selftest import card_rows
+    from flac_raster_tpu_torch.utils.devices import to_device
 
-    return card_rows(data, cuda)
+    return to_device(np.ascontiguousarray(data), cuda)
 
 
 @pytest.mark.parametrize("dtype,bands", [("uint16", 1), ("uint16", 2), ("int16", 1),

@@ -1,14 +1,14 @@
-"""The encoder's streaming STREAMINFO MD5 (``codec/decoder.md5_of_pcm_stream``,
-on the ``frtt-md5`` worker of ``codec/device_encoder.encode_flac_device``).
+"""The port's STREAMINFO MD5 (``codec/decoder.md5_of_pcm_stream``, on the
+``frtt-md5`` worker of ``codec/device_encoder.encode_flac_device``).
 
-Its digest equals the widened route's (``md5_of_samples(x.astype(np.int64)
-- zero, bps)``) and the JAX package's ``md5_of_samples`` of the same PCM,
-for every shift dtype, the float32 fold, 12, 20 and 24 bps, 1-3 channels and
-lengths around the slice; it holds no array larger than a slice; the
-encoder's bytes, MD5 field included, are those of the widened route; and a
-failing worker or chunk loop raises in the caller and leaves no thread.
-All on the CPU; tolerance 0 (bytes)."""
+Its digest equals the JAX package's ``md5_of_samples`` of the same PCM
+(``x.astype(np.int64) - zero``), for every shift dtype, the float32 fold,
+12, 20 and 24 bps, 1-3 channels and lengths around the slice; it holds no
+array larger than a slice; the encoder's MD5 field is the JAX package's
+digest; and a failing worker or chunk loop raises in the caller and leaves
+no thread.  All on the CPU; tolerance 0 (bytes)."""
 
+import functools
 import threading
 import tracemalloc
 
@@ -18,8 +18,9 @@ import torch
 
 from flac_raster_tpu.codec.decoder import md5_of_samples as jax_md5_of_samples
 from flac_raster_tpu_torch.codec import decoder, device_encoder
-from flac_raster_tpu_torch.codec.decoder import md5_of_pcm_stream, md5_of_samples, md5_route
+from flac_raster_tpu_torch.codec.decoder import md5_of_pcm_stream, md5_route
 from flac_raster_tpu_torch.ops.normalization import _SHIFT_SPECS, normalize_lossless
+from flac_raster_tpu_torch.utils.devices import to_device, to_host
 
 TIMEOUT_S = 60
 _MD5 = slice(26, 42)        # STREAMINFO's MD5 field in a stream's bytes
@@ -76,14 +77,14 @@ def test_digest_equals_the_widened_route_and_the_jax_package(monkeypatch, dtype,
         x = _samples(dtype, bits, n * channels, rng).reshape(n, channels)
         pcm = x.astype(np.int64) - zero
         got = md5_of_pcm_stream(x, bits, zero)
-        assert got == md5_of_samples(pcm, bits), n
         assert got == jax_md5_of_samples(pcm, bits), n
         if channels == 1:
             assert md5_of_pcm_stream(x[:, 0], bits, zero) == got, n
     # rows that are not contiguous: each slice is copied alone
     wide = _samples(dtype, bits, 2 * channels * 50, rng).reshape(50, 2 * channels)
     x = wide[:, ::2]
-    assert md5_of_pcm_stream(x, bits, zero) == md5_of_samples(x.astype(np.int64) - zero, bits)
+    assert md5_of_pcm_stream(x, bits, zero) == jax_md5_of_samples(x.astype(np.int64) - zero,
+                                                                   bits)
 
 
 @pytest.mark.parametrize("dtype,bits,zero,route", [
@@ -92,7 +93,7 @@ def test_digest_equals_the_widened_route_and_the_jax_package(monkeypatch, dtype,
     (np.uint8, 16, 1 << 7, "convert"),
 ])
 def test_holds_no_array_larger_than_a_slice(dtype, bits, zero, route):
-    """64 MB of samples: the widened route allocates about 20 times that
+    """64 MB of samples: widening them to int64 allocates about 20 times that
     (int64 twice, the narrowed copy, its bytes); the stream a slice or two."""
     n = (64 << 20) // np.dtype(dtype).itemsize
     x = np.full(n, 7, dtype)
@@ -108,8 +109,8 @@ def test_holds_no_array_larger_than_a_slice(dtype, bits, zero, route):
         tracemalloc.stop()
     assert peak < 3 * decoder.MD5_SLICE_BYTES, peak
     head = x[: 1 << 20]
-    assert md5_of_pcm_stream(head, bits, zero) == md5_of_samples(head.astype(np.int64) - zero,
-                                                                 bits)
+    assert md5_of_pcm_stream(head, bits, zero) == jax_md5_of_samples(
+        head.astype(np.int64) - zero, bits)
     assert len(digest) == 16
 
 
@@ -145,8 +146,8 @@ def test_the_encoders_bytes_are_unchanged(kind):
     kw = dict(compression_level=1, zero_point=zero, device="cpu", plan_chunk_frames=2)
     got = device_encoder.encode_flac_device(x, 44100, bits, compute_md5=True, **kw)
     bare = device_encoder.encode_flac_device(x, 44100, bits, compute_md5=False, **kw)
-    pcm = device_encoder.to_host(x) if isinstance(x, torch.Tensor) else x
-    md5 = md5_of_samples(pcm.astype(np.int64) - zero, bits)
+    pcm = to_host(x) if isinstance(x, torch.Tensor) else x
+    md5 = jax_md5_of_samples(pcm.astype(np.int64) - zero, bits)
     assert bare[_MD5] == bytes(16)
     assert got == bare[: _MD5.start] + md5 + bare[_MD5.stop :]
     assert not _md5_threads()
@@ -189,3 +190,71 @@ def test_a_failing_loop_stops_and_joins_the_worker(monkeypatch):
                                           device="cpu")
     assert seen["stopped"] and seen["thread"].startswith("frtt-md5")
     assert not _md5_threads()
+
+
+def _site_raster(dtype, bands: int, h: int = 20, w: int = 512) -> np.ndarray:
+    """A (bands, h, w) raster: a uint16 walk, or float32 heights with a NaN
+    and an infinity."""
+    rng = np.random.default_rng(11)
+    walk = np.cumsum(rng.integers(-40, 41, (bands, h * w)), axis=1).reshape(bands, h, w)
+    if dtype == np.uint16:
+        return np.clip(walk + 30000, 0, 65535).astype(np.uint16)
+    x = (walk / 7).astype(np.float32)
+    x[0, 1, 3], x[-1, 2, 2] = np.nan, np.inf
+    return x
+
+
+def _site_blob(site: str, dtype) -> bytes:
+    """The stream one STREAMINFO MD5 site of the port writes (the encoders)
+    or checks (the decoders, on an ``encode_array`` file)."""
+    from flac_raster_tpu_torch import RasterFLACConverter
+
+    conv = RasterFLACConverter(device="cpu")
+    bands = 2 if dtype == np.uint16 else 1
+    data = _site_raster(dtype, bands)
+    if site == "encode_array_device":
+        return conv.encode_array_device(to_device(data, torch.device("cpu")),
+                                        compression_level=1, compute_md5=True)
+    if site == "tile":               # the second tile of a batch of two
+        return conv.encode_array_batch(np.stack([data[:, ::-1], data]), compression_level=1)[1]
+    if site == "short_stream":       # fewer samples than one block
+        return conv.encode_array(data[:, :3, :100], compression_level=1)
+    if site == "odd_blocksize":      # a blocksize the device layout does not take
+        samples, rate, bps, zero, _ = conv._samples(data)
+        return device_encoder.encode_flac_device(samples, rate, bps, compression_level=1,
+                                                 blocksize=1000, zero_point=zero, device="cpu")
+    return conv.encode_array(data, compression_level=1)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32], ids=["uint16", "float32"])
+@pytest.mark.parametrize("site", [
+    "encode_array", "encode_array_device", "tile", "short_stream", "odd_blocksize",
+    "decode_flac", "decode_flac+1", "decode_flac_device", "decode_flac_device+1",
+])
+def test_every_md5_site_agrees_with_the_jax_package(site, dtype):
+    """Each encoder's STREAMINFO MD5 is the JAX package's ``md5_of_samples``
+    of the file's PCM (as the JAX decoder reads it); each decoder's
+    ``verify_md5`` passes that file and refuses it with the MD5's last byte
+    off by one (``+1``)."""
+    from flac_raster_tpu.codec.decoder import decode_flac as jax_decode_flac
+    from flac_raster_tpu_torch.codec.decoder import decode_flac
+    from flac_raster_tpu_torch.codec.device_decoder import decode_flac_device
+
+    name = site.removesuffix("+1")
+    blob = _site_blob(name, dtype)
+    ref = jax_decode_flac(blob)
+    want = jax_md5_of_samples(ref.samples, ref.streaminfo.bits_per_sample)
+    assert blob[_MD5] == want != bytes(16)
+    if not name.startswith("decode"):
+        return
+    decode = (decode_flac if name == "decode_flac"
+              else functools.partial(decode_flac_device, device="cpu"))
+    if site.endswith("+1"):
+        bad = bytearray(blob)
+        bad[_MD5.stop - 1] = (bad[_MD5.stop - 1] + 1) % 256
+        with pytest.raises(ValueError, match="MD5 mismatch"):
+            decode(bytes(bad), verify_md5=True)
+    else:
+        got = decode(blob, verify_md5=True).samples
+        got = got.numpy() if isinstance(got, torch.Tensor) else got
+        assert np.array_equal(got, ref.samples)

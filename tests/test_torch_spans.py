@@ -19,6 +19,7 @@ from flac_raster_tpu_torch import RasterFLACConverter
 from flac_raster_tpu_torch import converter as port_converter
 from flac_raster_tpu_torch.codec import device_encoder
 from flac_raster_tpu_torch.utils import profiling
+from flac_raster_tpu_torch.utils.devices import to_device
 
 TIMEOUT_S = 60
 
@@ -190,20 +191,33 @@ def test_two_encodes_at_once_keep_their_own_requests(log, small_chunks):
             assert all(s.thread.startswith("frtt-drain") for s in drained)
 
 
-@pytest.mark.parametrize("dtype,route", [(np.uint16, "sign_flip"), (np.float32, "view")])
-def test_the_md5_hashes_on_its_worker_while_the_client_waits(log, small_chunks, dtype, route):
+@pytest.mark.parametrize("dtype,route,entry", [
+    pytest.param(np.uint16, "sign_flip", "encode_array", id="uint16-sign_flip"),
+    pytest.param(np.float32, "view", "encode_array", id="float32-view"),
+    pytest.param(np.uint16, "sign_flip", "encode_array_device", id="device-uint16-sign_flip"),
+    pytest.param(np.float32, "view", "encode_array_device", id="device-float32-view"),
+])
+def test_the_md5_hashes_on_its_worker_while_the_client_waits(log, small_chunks, dtype, route,
+                                                             entry):
     """``frtt.md5`` lies on the ``frtt-md5`` worker under the request's id,
     with its route and PCM bytes (the band's uint16 flipped, the DEM's
     folded int32 viewed); its updates inside it; ``frtt.md5_wait`` on the
-    client's thread, after the chunk loop."""
+    client's thread, after the chunk loop.  A raster already on the device
+    (``encode_array_device``) hashes on the same one worker."""
     conv = RasterFLACConverter(device="cpu")
     data = _raster(600)
     if dtype == np.float32:
         data = (data.astype(np.float32) / 7).astype(np.float32)
-    blob, _ = _traced(lambda: conv.encode_array(data, compression_level=1))
+    if entry == "encode_array":
+        blob, _ = _traced(lambda: conv.encode_array(data, compression_level=1))
+    else:
+        tensor = to_device(data, torch.device("cpu"))
+        blob, _ = _traced(lambda: conv.encode_array_device(tensor, compression_level=1,
+                                                           compute_md5=True))
     assert blob == conv.encode_array(data, compression_level=1)
     spans = log()
     (root,) = _named(spans, "frtt.encode")
+    assert len({s.thread for s in spans if s.thread.startswith("frtt-md5")}) == 1
     (md5,) = _named(spans, "frtt.md5")
     assert md5.thread.startswith("frtt-md5") and md5.thread != root.thread
     assert md5.request == root.id and _inside(md5, root)
