@@ -424,46 +424,68 @@ def md5_route(dtype, bits_per_sample: int, zero_point: int) -> str:
 
 
 def md5_of_pcm_stream(samples: np.ndarray, bits_per_sample: int, zero_point: int = 0,
-                      stop: threading.Event | None = None) -> bytes | None:
+                      stop: threading.Event | None = None,
+                      planar: bool = False) -> bytes | None:
     """STREAMINFO's MD5 of (n,) or (n, C) integer samples less
     ``zero_point``: the MD5 of their interleaved little-endian PCM, each
     sample as wide as the byte-padded bit depth, as libFLAC computes it.
+    With ``planar``, ``samples`` are the (C, n) band planes of those rows
+    (each plane contiguous), and each slice's rows are interleaved from
+    them as it is made (the host C ``native.interleave_planes``, the sign
+    flip folded in; on the ``convert`` route a subtraction a band).
     The port's one producer of STREAMINFO MD5 bytes.  It hashes a slice of
     rows at a time (each update a ``frtt.md5.hash`` span): no array it
     makes holds more than ``MD5_SLICE_BYTES`` (or one row), whatever n.
     The route (``md5_route``) follows the dtype, the bit depth and the zero
     point.  Returns None, part hashed, once ``stop`` is set: it is read
     before each slice."""
-    rows = samples if samples.ndim == 2 else samples.reshape(len(samples), 1)
-    route = md5_route(rows.dtype, bits_per_sample, zero_point)
+    if planar:
+        planes = samples if samples.ndim == 2 else samples.reshape(1, -1)
+        C, n = planes.shape
+    else:
+        rows = samples if samples.ndim == 2 else samples.reshape(len(samples), 1)
+        n, C = rows.shape
+    route = md5_route(samples.dtype, bits_per_sample, zero_point)
     width = pcm_width(bits_per_sample)
-    step = max(1, MD5_SLICE_BYTES // (rows.shape[1] * (8 if route == "convert" else width)))
-    cap = step * rows.shape[1]
-    if route == "sign_flip":
-        unsigned = np.dtype(f"<u{width}")
-        top = np.array(1 << (8 * width - 1), unsigned)
-        out = np.empty(cap, unsigned)
-    elif route == "convert":
+    step = max(1, MD5_SLICE_BYTES // (C * (8 if route == "convert" else width)))
+    cap = step * C
+    if route == "convert":
         diff = np.empty(cap, np.int64)
         out = np.empty(cap * width, np.uint8) if width == 3 else np.empty(cap, f"<i{width}")
+    elif route == "sign_flip" or planar:
+        unsigned = np.dtype(f"<u{width}")
+        top = np.array(1 << (8 * width - 1) if route == "sign_flip" else 0, unsigned)
+        out = np.empty(cap, unsigned)
     h = hashlib.md5()
-    for r0 in range(0, len(rows), step):
+    for r0 in range(0, n, step):
         if stop is not None and stop.is_set():
             return None
-        x = np.ascontiguousarray(rows[r0 : r0 + step]).reshape(-1)
-        if route == "view":
-            pcm = x
-        elif route == "sign_flip":
-            pcm = np.bitwise_xor(x.view(unsigned), top, out=out[: x.size])
-        else:
-            d = np.subtract(x, zero_point, out=diff[: x.size], dtype=np.int64, casting="unsafe")
+        if route == "convert":
+            if planar:
+                k = min(step, n - r0)
+                d = diff[: k * C]
+                for c in range(C):
+                    np.subtract(planes[c, r0 : r0 + k], zero_point, out=d.reshape(k, C)[:, c],
+                                dtype=np.int64, casting="unsafe")
+            else:
+                x = np.ascontiguousarray(rows[r0 : r0 + step]).reshape(-1)
+                d = np.subtract(x, zero_point, out=diff[: x.size], dtype=np.int64,
+                                casting="unsafe")
             if width == 3:       # the low 3 bytes of each little-endian int64
-                pcm = out[: 3 * x.size]
+                pcm = out[: 3 * d.size]
                 np.copyto(pcm.reshape(-1, 3), d.astype("<i8", copy=False).view(np.uint8)
                           .reshape(-1, 8)[:, :3])
             else:
-                pcm = out[: x.size]
+                pcm = out[: d.size]
                 np.copyto(pcm, d, casting="unsafe")
+        elif planar:
+            pcm = native.interleave_planes(planes[:, r0 : r0 + step], int(top), out)
+        else:
+            x = np.ascontiguousarray(rows[r0 : r0 + step]).reshape(-1)
+            if route == "view":
+                pcm = x
+            else:
+                pcm = np.bitwise_xor(x.view(unsigned), top, out=out[: x.size])
         with span("frtt.md5.hash"):
             h.update(pcm)
     return h.digest()

@@ -21,6 +21,16 @@ encode_array_device``): the chunks are then slices of it, and only the rows
 of a tail frame or of a short stream, and the MD5's PCM where asked for,
 come back to the host.
 
+A host raster of several bands may arrive as its (C, n) band planes, as it
+lies, in place of (n, C) rows (``converter.encode_array``'s lossless shift
+mode, through ``encode_flac_device``'s private ``_planar``): each chunk
+then goes up as C contiguous slices of the planes, and one strided copy on
+the device interleaves it into its graph's input, where the host would have
+interleaved the whole raster first; the graphs, their inputs and the bytes
+are the same.  The MD5 interleaves each of its slices from the planes
+(``decoder.md5_of_pcm_stream(planar=True)``), and the tail frame takes the
+planes' last columns.
+
 ``encode_flac_batch_device`` runs the same chunk loop over the full frames
 of a batch of same-shaped streams (the tiles of ``converter.
 encode_array_batch``), each stream's frames numbered from 0, and cuts each
@@ -212,12 +222,14 @@ def _graphs(dev: torch.device, n_frames: int, chunk: int, channels: int, layout:
 
 class _HostChunks:
     """The chunk loop's device side on the CPU: each chunk planned and
-    emitted eagerly (the plain PyTorch versions of the kernels)."""
+    emitted eagerly (the plain PyTorch versions of the kernels); a chunk of
+    band planes is interleaved into rows first."""
 
     def __init__(self, frames_of, bounds, numbers: torch.Tensor, channels: int, zero_point: int,
-                 layout: dict):
+                 layout: dict, planar: bool = False):
         self.frames_of, self.bounds, self.numbers = frames_of, bounds, numbers
         self.channels, self.zero_point, self.layout = channels, zero_point, layout
+        self.planar = planar
 
     def stage(self, i: int) -> None:
         pass
@@ -227,6 +239,8 @@ class _HostChunks:
         rows = self.frames_of(g0, g1)
         if isinstance(rows, list):
             rows = np.concatenate(rows)
+        if self.planar:                          # (C, F, N) -> (F, N, C)
+            rows = np.ascontiguousarray(rows.transpose(1, 2, 0))
         if not isinstance(rows, torch.Tensor):
             rows = torch.from_numpy(rows)
         words, head = chunk_graph.emit_chunk(rows.permute(0, 2, 1), self.numbers[g0:g1],
@@ -244,6 +258,8 @@ class _CardChunks:
     replay (stream order keeps the next replay from overwriting them first).
     A chunk of F frames runs in the graph of ``padded(F)`` frames: its
     frames first, then zero frames, whose outputs the drain leaves out.
+    With ``planar`` a chunk comes as (C, F, N) band planes: it goes up as
+    they lie, and the copy into the graph's (F, N, C) input interleaves it.
 
     The words come back at their worst-case length (``n_words``): the used
     prefix is known only from the frame bits, and waiting for those would
@@ -252,9 +268,10 @@ class _CardChunks:
     """
 
     def __init__(self, frames_of, bounds, numbers: torch.Tensor, channels: int, zero_point: int,
-                 layout: dict, dtype: torch.dtype, dev: torch.device, chunk: int):
+                 layout: dict, dtype: torch.dtype, dev: torch.device, chunk: int,
+                 planar: bool = False):
         self.frames_of, self.bounds, self.numbers = frames_of, bounds, numbers
-        self.chunk = chunk
+        self.chunk, self.planar = chunk, planar
         self.graphs = _graphs(dev, bounds[-1][1], chunk, channels, layout, zero_point, dtype)
         big = self.graphs[max(self.graphs)]
         self.stream = torch.cuda.current_stream(dev)
@@ -271,7 +288,8 @@ class _CardChunks:
     def stage(self, i: int) -> None:
         """Upload chunk i's host rows on the copy stream (a device tensor
         is copied at its dispatch instead); rows given as a list of pieces
-        are gathered into the pinned buffer one after another."""
+        are gathered into the pinned buffer one after another, and band
+        planes go in as they lie, a band after another."""
         rows = self.frames_of(*self.bounds[i])
         slot = i % 2
         if isinstance(rows, torch.Tensor):
@@ -313,7 +331,12 @@ class _CardChunks:
             else:
                 self.stream.wait_event(staged)
                 n = graph.x[:F].numel()
-                graph.x.view(-1)[:n].copy_(self.dev_in.view(-1)[:n])
+                landed = self.dev_in.view(-1)[:n]
+                if self.planar:                  # the chunk's interleave, on the card
+                    _, N, C = graph.x.shape
+                    graph.x[:F].copy_(landed.view(C, F, N).permute(1, 2, 0))
+                else:
+                    graph.x.view(-1)[:n].copy_(landed)
                 self.consumed = torch.cuda.Event()
                 self.consumed.record(self.stream)
             if F < padded:
@@ -362,12 +385,15 @@ def _drain(bounds: tuple, out, channels: int, frame_numbers: np.ndarray, bs_tail
 
 
 def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layout: dict,
-                      zero_point: int, chunk: int, dev: torch.device, dtype: torch.dtype):
+                      zero_point: int, chunk: int, dev: torch.device, dtype: torch.dtype,
+                      planar: bool = False):
     """Plan and emit full frames on ``dev``, ``chunk`` frames at a time.
 
     ``frames_of(g0, g1)`` gives frames [g0, g1) as (g1 - g0, N, C) integer
     rows of ``dtype``: a numpy array, a list of (k, N, C) arrays whose
-    concatenation they are, or a tensor already on ``dev``;
+    concatenation they are, or a tensor already on ``dev``; with
+    ``planar``, as a (C, g1 - g0, N) numpy array of band planes, each
+    band's frames contiguous (interleaved on the device);
     ``frame_numbers`` (one per frame) go into the headers.  Returns (the
     frames' bytes, CRCs patched; each frame's size in bytes; its first
     C - 1 subframes' sizes in bits).  Its stages are spans (``frtt.upload``,
@@ -394,9 +420,10 @@ def _emit_full_frames(frames_of, frame_numbers: np.ndarray, channels: int, layou
         try:
             if dev.type == "cuda":
                 chunks = _CardChunks(frames_of, bounds, numbers, channels, zero_point, layout,
-                                     dtype, dev, chunk)
+                                     dtype, dev, chunk, planar)
             else:
-                chunks = _HostChunks(frames_of, bounds, numbers, channels, zero_point, layout)
+                chunks = _HostChunks(frames_of, bounds, numbers, channels, zero_point, layout,
+                                     planar)
             with span("frtt.upload"):
                 chunks.stage(0)
             for i in range(len(bounds)):
@@ -476,6 +503,8 @@ def encode_flac_device(
     plan_chunk_frames: int = PLAN_CHUNK_FRAMES,
     zero_point: int = 0,
     device="cuda",
+    *,
+    _planar: bool = False,
 ) -> bytes:
     """Encode integer samples (n, channels) to FLAC on ``device``.
 
@@ -502,12 +531,17 @@ def encode_flac_device(
     scalar host encoder for the whole stream (logged at INFO), as in the
     JAX package.
 
+    ``_planar`` (the converter's, no user's): ``samples`` is a host array of
+    the (channels, n) band planes of those rows; the bytes are the same.
+
     Raises:
         RuntimeError: when the sample stream broke the pack kernel's
             precondition (the chunk's words would be wrong).
     """
     dev = resolve_device(device)
     on_device = isinstance(samples, torch.Tensor)
+    if _planar and on_device:
+        raise ValueError("band planes are taken from host memory only")
     if on_device:
         if samples.device.type != dev.type:
             raise ValueError(f"samples lie on {samples.device}, the encoder runs on {dev}")
@@ -516,22 +550,25 @@ def encode_flac_device(
         samples = np.asarray(samples)
         dtype = samples.dtype
     if samples.ndim == 1:
-        samples = samples[:, None]
-    n, channels = samples.shape
+        samples = samples[None] if _planar else samples[:, None]
+    channels, n = samples.shape if _planar else samples.shape[::-1]
     _check_stream(channels, bits_per_sample, dtype)
     cfg = EncoderConfig.from_level(compression_level)
     n_full = n // blocksize
     if n_full == 0 or not device_blocksize(blocksize):
         # one short frame, or frames the device layout does not take: the
         # scalar host encoder, as the JAX package
-        return _host_encode(samples, on_device, sample_rate, bits_per_sample,
-                            compression_level, blocksize, comments, vendor, compute_md5,
-                            padding, zero_point)
+        return _host_encode(samples.T if _planar else samples, on_device, sample_rate,
+                            bits_per_sample, compression_level, blocksize, comments, vendor,
+                            compute_md5, padding, zero_point)
     _check_range(samples, dtype, bits_per_sample, zero_point)
     if not on_device:
         samples = np.ascontiguousarray(samples)
 
     def frames_of(g0, g1):
+        if _planar:
+            return samples[:, g0 * blocksize : g1 * blocksize].reshape(channels, g1 - g0,
+                                                                     blocksize)
         return samples[g0 * blocksize : g1 * blocksize].reshape(g1 - g0, blocksize, channels)
 
     layout = _frame_layout(blocksize, bits_per_sample, sample_rate, channels, cfg)
@@ -540,15 +577,17 @@ def encode_flac_device(
     # the MD5 hashes on its worker while the chunk loop runs
     with ThreadPoolExecutor(1, thread_name_prefix="frtt-md5") as pool:
         try:
-            job = (pool.submit(carry(_md5_job), samples, bits_per_sample, zero_point, stop)
+            job = (pool.submit(carry(_md5_job), samples, bits_per_sample, zero_point, stop,
+                               _planar)
                    if compute_md5 else None)
             frames, sizes, subs = _emit_full_frames(
                 frames_of, np.arange(n_full), channels, layout, zero_point,
                 max(1, int(plan_chunk_frames)), dev,
-                samples.dtype if on_device else torch_dtype(dtype))
+                samples.dtype if on_device else torch_dtype(dtype), _planar)
             tail = None
             if n_full * blocksize < n:
-                tail = samples[n_full * blocksize :]
+                tail = (samples[:, n_full * blocksize :].T if _planar
+                        else samples[n_full * blocksize :])
                 tail = (to_host(tail) if on_device else tail).astype(np.int64) - zero_point
             if job is not None:
                 with span("frtt.md5_wait"):
@@ -559,17 +598,20 @@ def encode_flac_device(
                             bits_per_sample, blocksize, cfg, md5, comments, vendor, padding)
 
 
-def _md5_job(samples, bits_per_sample: int, zero_point: int, stop: threading.Event):
-    """STREAMINFO's MD5 of the encoder's (n, C) samples less their zero
-    point, streamed from them a slice at a time (``decoder.
-    md5_of_pcm_stream``); a tensor is pulled to the host first.  The
-    ``frtt.md5`` span's ``route`` and ``bytes`` say how and how much."""
+def _md5_job(samples, bits_per_sample: int, zero_point: int, stop: threading.Event,
+             planar: bool):
+    """STREAMINFO's MD5 of the encoder's (n, C) samples, or (C, n) band
+    planes with ``planar``, less their zero point, streamed from them a
+    slice at a time (``decoder.md5_of_pcm_stream``); a tensor is pulled to
+    the host first.  The ``frtt.md5`` span's ``route``, ``layout``
+    (``"planar"`` or ``"rows"``) and ``bytes`` say how and how much."""
     dtype = np_dtype(samples) if isinstance(samples, torch.Tensor) else samples.dtype
     with span("frtt.md5", route=md5_route(dtype, bits_per_sample, zero_point),
+              layout="planar" if planar else "rows",
               bytes=samples.shape[0] * samples.shape[1] * pcm_width(bits_per_sample)):
         if isinstance(samples, torch.Tensor):
             samples = to_host(samples)
-        return md5_of_pcm_stream(samples, bits_per_sample, zero_point, stop)
+        return md5_of_pcm_stream(samples, bits_per_sample, zero_point, stop, planar)
 
 
 def encode_flac_batch_device(

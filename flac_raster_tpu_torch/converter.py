@@ -20,6 +20,13 @@ that is not a multiple of the blocksize with a host-encoded tail frame:
     16-bit PCM for 8- and 16-bit dtypes, the reference's "24-bit" samples
     (+-8388607) at 32 bits per sample for the others.
 
+A raster of more than one band in the shift mode goes to the encoder as its
+band planes, as it lies: the chunk loop interleaves each chunk into sample
+rows on the device, and the MD5 each of its slices on the host, so the host
+never interleaves the whole raster.  The float32 and float64 folds and the
+minmax mode, and the tiles of ``encode_array_batch``, hand the encoder
+interleaved (h*w, bands) rows.
+
 32-bit PCM takes the wide lane of the planner and the decoder.  Files
 carry the same GEOSPATIAL_* comments as the JAX package's, so each package
 decodes the other's files.  Files the reference system wrote -- minmax
@@ -66,6 +73,7 @@ from .ops.normalization import (
     normalize_lossless,
     normalize_to_audio,
 )
+from .utils import profiling
 from .utils.devices import as_int64, np_dtype, resolve_device, signed_view, to_host
 from .utils.profiling import StageTimer, request_method, span
 
@@ -201,24 +209,31 @@ class RasterFLACConverter:
         if data.ndim == 2:
             data = data[None]
         count, height, width = data.shape
+        # a lossless multi-band raster in the shift mode goes to the encoder
+        # as its band planes, which the chunk loop interleaves on the device
+        planar = self.lossless and count > 1 and np.dtype(data.dtype) in _SHIFT_SPECS
+        profiling.count(planar_bands=count if planar else 0)
         timer = self._timer()
         with timer.stage(self._normalize_stage(data.dtype), data.nbytes):
-            samples, sample_rate, bps, zero, params = self._samples(data)
-        comments = self._comments(samples.shape[1], params, count, height, width, data.dtype,
-                                  crs, transform, bounds, nodata, extra_comments)
+            samples, sample_rate, bps, zero, params = self._samples(data, planar)
+        comments = self._comments(count if planar else samples.shape[1], params, count, height,
+                                  width, data.dtype, crs, transform, bounds, nodata,
+                                  extra_comments)
         # the chunk loop's own stages are frtt.* ranges (codec/device_encoder)
         with timer.stage("encode", data.nbytes):
             blob = encode_flac_device(
                 samples, sample_rate, bps,
                 compression_level=compression_level, comments=comments,
-                compute_md5=compute_md5, zero_point=zero, device=self.device,
+                compute_md5=compute_md5, zero_point=zero, device=self.device, _planar=planar,
             )
         timer.report(logging.DEBUG)
         return blob
 
-    def _samples(self, data: np.ndarray):
-        """(sample rows, sample rate, bits per sample, zero point,
-        normalization parameters) of a (bands, h, w) raster."""
+    def _samples(self, data: np.ndarray, planar: bool = False):
+        """(samples, sample rate, bits per sample, zero point, normalization
+        parameters) of a (bands, h, w) raster.  The samples are (h*w, bands)
+        rows; with ``planar`` (the shift mode only), the (bands, h*w) band
+        planes, a view of the raster where it is contiguous."""
         dt = np.dtype(data.dtype)
         sample_rate, ref_bps = calculate_audio_params(data, dt)
         zero = 0
@@ -230,7 +245,7 @@ class RasterFLACConverter:
         elif dt in _SHIFT_SPECS:
             # the zero point is subtracted on the device: raw samples go up
             bps, zero = _SHIFT_SPECS[dt]
-            samples = _interleave(data)
+            samples = data.reshape(len(data), -1) if planar else _interleave(data)
             params = NormalizationParams(
                 data_min=float(data.min()), data_max=float(data.max()),
                 original_dtype=str(dt), bits_per_sample=bps, scale_factor=1,

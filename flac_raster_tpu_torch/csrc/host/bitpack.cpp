@@ -1,5 +1,6 @@
 // Host C runtime of the PyTorch port: CRC patching and checking, the native
-// frame decoder and the residual decoder of the Python frame walk.
+// frame decoder and the residual decoder of the Python frame walk, and the
+// interleave of band planes into the STREAMINFO MD5's PCM rows.
 //
 // Copied from the JAX package's flac_raster_tpu/native/bitpack.cpp: the CRC
 // tables and span loops, the bit reader, decode_residual_c,
@@ -102,6 +103,60 @@ void crc8_patch_spans_c(uint8_t* buf,
                         int64_t n) {
     for (int64_t i = 0; i < n; ++i) {
         crc8_spans(buf, starts + i, lens + i, 1, buf + starts[i] + lens[i]);
+    }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The STREAMINFO MD5's PCM from band planes
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// out[i * C + c] = sample i of plane c ^ flip, for C planes of k samples of
+// T, plane c at base + c * plane_stride bytes.
+template <typename T>
+void interleave_planes(const uint8_t* base, int64_t plane_stride, int64_t C,
+                       int64_t k, T flip, T* out) {
+    if (C == 2) {     // two bands: one pass that writes each row whole
+        const T* a = (const T*)base;
+        const T* b = (const T*)(base + plane_stride);
+        for (int64_t i = 0; i < k; ++i) {
+            out[2 * i] = (T)(a[i] ^ flip);
+            out[2 * i + 1] = (T)(b[i] ^ flip);
+        }
+        return;
+    }
+    for (int64_t c = 0; c < C; ++c) {
+        const T* p = (const T*)(base + c * plane_stride);
+        for (int64_t i = 0; i < k; ++i) out[i * C + c] = (T)(p[i] ^ flip);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// The interleaved rows of k samples of C band planes, each sample `width`
+// bytes (1, 2 or 4) xor `flip` (its top bit for the sign flip, else 0),
+// into out (k * C samples).  Returns 0, or -1 for another width.
+int32_t interleave_planes_c(const uint8_t* base, int64_t plane_stride,
+                            int64_t C, int64_t k, int32_t width, uint32_t flip,
+                            uint8_t* out) {
+    switch (width) {
+        case 1:
+            interleave_planes<uint8_t>(base, plane_stride, C, k, (uint8_t)flip, out);
+            return 0;
+        case 2:
+            interleave_planes<uint16_t>(base, plane_stride, C, k, (uint16_t)flip,
+                                        (uint16_t*)out);
+            return 0;
+        case 4:
+            interleave_planes<uint32_t>(base, plane_stride, C, k, flip, (uint32_t*)out);
+            return 0;
+        default:
+            return -1;
     }
 }
 

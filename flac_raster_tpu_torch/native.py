@@ -1,8 +1,10 @@
-"""Host C runtime of the port: CRC patching, the native frame decoder and
-the residual decoder of the Python frame walk.
+"""Host C runtime of the port: CRC patching, the native frame decoder, the
+residual decoder of the Python frame walk, and the interleave of band planes
+into the STREAMINFO MD5's PCM rows.
 
 The C source is the port's own, ``csrc/host/bitpack.cpp`` (the parts of
-the JAX package's host runtime that these five entry points need, copied),
+the JAX package's host runtime that the CRC and decode entry points need,
+copied, and the interleave),
 compiled with ``g++ -O3 -shared -fPIC`` into the port's git-ignored build
 directory.
 
@@ -21,7 +23,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["crc8_patch", "crc16_patch", "crc16_spans", "decode_frames", "decode_residual"]
+__all__ = ["crc8_patch", "crc16_patch", "crc16_spans", "decode_frames", "decode_residual",
+           "interleave_planes"]
 
 _SRCS = (Path(__file__).resolve().parent / "csrc" / "host" / "bitpack.cpp",)
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -87,6 +90,11 @@ def _load():
         u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, i64p,
     ]
     lib.decode_residual_c.restype = ctypes.c_int64
+    lib.interleave_planes_c.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint32,
+        u8p,
+    ]
+    lib.interleave_planes_c.restype = ctypes.c_int32
     _lib = lib
     return lib
 
@@ -189,3 +197,26 @@ def decode_residual(buf: np.ndarray, bit_pos: int, blocksize: int, order: int):
         raise ValueError("corrupt Rice stream" if end == -2
                          else "invalid residual coding parameters")
     return out, int(end)
+
+
+def interleave_planes(planes: np.ndarray, flip: int, out: np.ndarray) -> np.ndarray:
+    """The (k, C) rows of C band planes, (C, k) samples of 1, 2 or 4 bytes
+    whose planes are each contiguous, each sample xor ``flip``, written into
+    ``out`` (a contiguous 1-D array of at least k * C samples of the
+    planes' itemsize); returns the k * C samples written, as ``out``'s
+    dtype.  The planes' bytes are taken as they lie (little-endian)."""
+    C, k = planes.shape
+    width = planes.itemsize
+    if width not in (1, 2, 4) or out.itemsize != width:
+        raise ValueError(f"samples of {width} bytes into {out.itemsize}-byte samples")
+    if k > 1 and planes.strides[1] != width:
+        raise ValueError("each plane must be contiguous")
+    if out.ndim != 1 or not out.flags.c_contiguous or out.size < k * C:
+        raise ValueError("out must be a contiguous 1-D array of k * C samples")
+    if not 0 <= flip < 1 << (8 * width):
+        raise ValueError(f"flip {flip} exceeds {width} bytes")
+    if k and C:
+        _load().interleave_planes_c(
+            _ptr(planes, ctypes.c_uint8), planes.strides[0], C, k, width, flip,
+            _ptr(out, ctypes.c_uint8))
+    return out[: k * C]

@@ -1154,6 +1154,56 @@ def test_partial_chunk_runs_in_a_power_of_two_graph(cuda):
     assert sorted(c["F"] for c in chunk_graph.CAPTURES[n:]) == [4, 8]
 
 
+@pytest.mark.parametrize("dtype,bands,level", [(np.uint16, 2, 8), (np.int16, 3, 5)])
+def test_plane_chunks_on_card_equal_row_chunks(cuda, dtype, bands, level):
+    """``_CardChunks`` fed (C, F, N) band planes -- two full chunks of four
+    frames and a partial chunk of three in the graph of four -- returns each
+    chunk's head and used words as fed (F, N, C) rows (tolerance 0), and
+    ``encode_flac_device(_planar=True)`` gives the rows' bytes, capturing no
+    graph the rows' encode did not."""
+    from flac_raster_tpu_torch import encode_flac_device
+    from flac_raster_tpu_torch.codec import chunk_graph, device_encoder
+    from flac_raster_tpu_torch.codec.encoder import EncoderConfig
+    from flac_raster_tpu_torch.utils.devices import torch_dtype
+
+    N, frames, chunk = 4096, 11, 4
+    zero = 1 << 15 if dtype == np.uint16 else 0
+    x = _two_band(bands, frames, tail=0).astype(np.int32)
+    if bands == 3:
+        x = np.concatenate([x, x[:, :1] // 2], 1)
+    rows = (x + zero).astype(dtype)
+    planes = np.ascontiguousarray(rows.T)
+    layout = device_encoder._frame_layout(N, 16, 44100, bands, EncoderConfig.from_level(level))
+    bounds = device_encoder._bounds(frames, chunk)
+    numbers = torch.arange(frames, device=cuda)
+
+    def run(frames_of, planar):
+        chunks = device_encoder._CardChunks(frames_of, bounds, numbers, bands, zero, layout,
+                                            torch_dtype(rows.dtype), cuda, chunk, planar)
+        out = []
+        for i in range(len(bounds)):
+            chunks.stage(i)
+            done, words, head, padded = chunks.dispatch(i)
+            done.synchronize()
+            used = (int(head[:padded].sum()) + 31) // 32
+            out.append((words[:used].clone(), head.clone(), padded))
+        return out
+
+    by_rows = run(lambda g0, g1: rows[g0 * N : g1 * N].reshape(g1 - g0, N, bands), False)
+    by_planes = run(lambda g0, g1: planes[:, g0 * N : g1 * N].reshape(bands, g1 - g0, N), True)
+    assert [p for *_, p in by_planes] == [4, 4, 4]
+    for (w_r, h_r, _), (w_p, h_p, _) in zip(by_rows, by_planes):
+        assert torch.equal(h_p, h_r) and torch.equal(w_p, w_r)
+
+    samples = np.concatenate([rows, rows[: 100]])             # and a tail
+    kw = dict(compression_level=level, plan_chunk_frames=chunk, zero_point=zero, device=cuda)
+    want = encode_flac_device(samples, 44100, 16, **kw)
+    n = len(chunk_graph.CAPTURES)
+    assert encode_flac_device(np.ascontiguousarray(samples.T), 44100, 16, _planar=True,
+                              **kw) == want
+    assert len(chunk_graph.CAPTURES) == n
+
+
 def test_chunk_graph_cache_is_bounded_by_pool_bytes(cuda, monkeypatch):
     """Past CACHE_BYTES of pools the least recently used graphs go (the
     newest stays whatever its size); clear() drops every graph."""

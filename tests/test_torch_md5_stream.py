@@ -174,7 +174,7 @@ def test_a_failing_loop_stops_and_joins_the_worker(monkeypatch):
     for as long as the loop runs, has seen the stop flag and ended."""
     seen = {}
 
-    def hashing(samples, bits, zero, stop):
+    def hashing(samples, bits, zero, stop, planar=False):
         seen["stopped"] = stop.wait(TIMEOUT_S)
         seen["thread"] = threading.current_thread().name
         return None

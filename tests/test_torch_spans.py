@@ -200,10 +200,11 @@ def test_two_encodes_at_once_keep_their_own_requests(log, small_chunks):
 def test_the_md5_hashes_on_its_worker_while_the_client_waits(log, small_chunks, dtype, route,
                                                              entry):
     """``frtt.md5`` lies on the ``frtt-md5`` worker under the request's id,
-    with its route and PCM bytes (the band's uint16 flipped, the DEM's
-    folded int32 viewed); its updates inside it; ``frtt.md5_wait`` on the
-    client's thread, after the chunk loop.  A raster already on the device
-    (``encode_array_device``) hashes on the same one worker."""
+    with its route, its layout (a band's rows) and PCM bytes (the band's
+    uint16 flipped, the DEM's folded int32 viewed); its updates inside it;
+    ``frtt.md5_wait`` on the client's thread, after the chunk loop.  A
+    raster already on the device (``encode_array_device``) hashes on the
+    same one worker."""
     conv = RasterFLACConverter(device="cpu")
     data = _raster(600)
     if dtype == np.float32:
@@ -221,7 +222,8 @@ def test_the_md5_hashes_on_its_worker_while_the_client_waits(log, small_chunks, 
     (md5,) = _named(spans, "frtt.md5")
     assert md5.thread.startswith("frtt-md5") and md5.thread != root.thread
     assert md5.request == root.id and _inside(md5, root)
-    assert md5.attrs == {"route": route, "bytes": data.size * (2 if dtype == np.uint16 else 4)}
+    assert md5.attrs == {"route": route, "layout": "rows",
+                         "bytes": data.size * (2 if dtype == np.uint16 else 4)}
     hashed = _named(spans, "frtt.md5.hash")
     assert hashed and all(s.parent == md5.id and _inside(s, md5) for s in hashed)
     (wait,) = _named(spans, "frtt.md5_wait")
